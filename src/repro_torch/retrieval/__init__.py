@@ -1,0 +1,15 @@
+"""Public search API over the 2GTI traversal engines.
+
+  - :mod:`contract`: ``SearchRequest`` / ``SearchResponse`` with per-call
+    ``k`` and ``threshold_factor``; ``K_BUCKETS`` depth buckets;
+  - :mod:`engines`: the ``Engine`` protocol and string-keyed registry
+    (``batched`` / ``kernel`` / ``sequential``);
+  - :mod:`retriever`: the ``Retriever`` facade
+    (``Retriever.open(index, params, engine=..., device=...)`` →
+    ``.search(...)``) handling padding, k-bucketing and engine dispatch.
+"""
+from .contract import (K_BUCKETS, SearchRequest, SearchResponse,  # noqa: F401
+                       bucket_k, resolve_ks)
+from .engines import (Engine, engine_names, get_engine,  # noqa: F401
+                      register_engine)
+from .retriever import Retriever  # noqa: F401

@@ -1,0 +1,168 @@
+"""The ``Retriever`` facade: one search entry point over every engine.
+
+    index = build_index(corpus.merged("scaled"), tile_size=512)   # on cuda
+    r = Retriever.open(index, twolevel.fast(), engine="kernel",
+                       traversal="chunked_fused")
+    resp = r.search(terms=q_terms, weights_b=qw_b, weights_l=qw_l, k=10)
+    resp.ids, resp.scores, resp.stats, resp.latency_ms
+
+The facade owns the query-time mechanics:
+
+  - **engine selection**: string-keyed registry (``engines.py``); the
+    pruning policy (TwoLevelParams), the index and its device are fixed at
+    ``open`` time, depth and threshold overrides are per call;
+  - **padding**: ragged per-query term lists are padded to one [B, Nq]
+    shape with zero-weight no-op terms;
+  - **k-bucketing**: per-request ``k`` executes at the smallest bucket
+    >= k and is truncated back (``k_buckets=None`` = exact mode), so the
+    results equal the reference's for the same request.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..core.twolevel import TwoLevelParams, resolve_k
+from .contract import (K_BUCKETS, SearchRequest, SearchResponse, bucket_k,
+                       resolve_ks)
+from .engines import get_engine
+
+
+def _pad_queries(terms, weights_b, weights_l):
+    """Rectangularize a query batch. [B, Nq] arrays or tensors pass through
+    (tensors keep their device); ragged per-query sequences are padded
+    with zero-weight terms (score no-ops)."""
+    batch = (terms, weights_b, weights_l)
+    if all(isinstance(a, torch.Tensor) and a.dim() == 2 for a in batch):
+        return (terms.to(torch.int32), weights_b.to(torch.float32),
+                weights_l.to(torch.float32))
+    try:
+        arr = np.asarray(terms)
+    except ValueError:  # ragged: numpy refuses inhomogeneous shapes
+        arr = None
+    if arr is not None and arr.dtype != object and arr.ndim == 2:
+        return (arr.astype(np.int32),
+                np.asarray(weights_b, dtype=np.float32),
+                np.asarray(weights_l, dtype=np.float32))
+    if (arr is not None and arr.dtype != object and arr.ndim == 1
+            and arr.size and np.ndim(terms[0]) == 0):
+        raise ValueError("terms must be a [B, Nq] batch or a list of "
+                         "per-query term arrays, got a single flat query")
+    lens = [len(t) for t in terms]
+    b, n = len(terms), max(lens, default=1)
+    t_pad = np.zeros((b, max(n, 1)), np.int32)
+    wb_pad = np.zeros((b, max(n, 1)), np.float32)
+    wl_pad = np.zeros((b, max(n, 1)), np.float32)
+    for i, (t, wb, wl) in enumerate(zip(terms, weights_b, weights_l)):
+        t_pad[i, :len(t)] = np.asarray(t)
+        wb_pad[i, :len(t)] = np.asarray(wb)
+        wl_pad[i, :len(t)] = np.asarray(wl)
+    return t_pad, wb_pad, wl_pad
+
+
+class Retriever:
+    """Facade over a registered engine."""
+
+    def __init__(self, engine, params: TwoLevelParams,
+                 k_buckets=K_BUCKETS, generation: int = 0):
+        self.engine = engine
+        self.params = params
+        # sorted: bucket_k picks the first bucket >= k in iteration order
+        self.k_buckets = tuple(sorted(k_buckets)) if k_buckets else None
+        # index generation tag, stamped on every response
+        self.generation = generation
+
+    @classmethod
+    def open(cls, index, params: TwoLevelParams | None = None,
+             engine: str = "batched", *, device="cuda", k_buckets=K_BUCKETS,
+             generation: int = 0, **engine_opts) -> "Retriever":
+        """Build a retriever: ``index`` + pruning ``params`` + an engine
+        name from the registry. The index is served from ``device``
+        (moved there if it lives elsewhere; asking for CUDA without a GPU
+        raises). ``engine_opts`` go to the engine constructor
+        (``traversal=...``, ``chunk_tiles=...`` for ``"batched"`` /
+        ``"kernel"``, ``warmup=False`` for ``"sequential"``)."""
+        params = params if params is not None else TwoLevelParams()
+        eng = get_engine(engine)(index, params, device=device,
+                                 **engine_opts)
+        return cls(eng, params, k_buckets=k_buckets, generation=generation)
+
+    @property
+    def engine_name(self) -> str:
+        return self.engine.name
+
+    def replicate(self) -> "Retriever":
+        """A serving replica: a fresh engine instance with the same
+        configuration sharing the open index tensors."""
+        replicate = getattr(self.engine, "replicate", None)
+        if replicate is None:
+            raise TypeError(
+                f"engine {self.engine_name!r} does not support replica "
+                f"cloning (no .replicate)")
+        return Retriever(replicate(self.params), self.params,
+                         k_buckets=self.k_buckets,
+                         generation=self.generation)
+
+    def search(self, request: SearchRequest | None = None, *,
+               terms=None, weights_b=None, weights_l=None, dense=None,
+               k=None,
+               threshold_factor: float | None = None) -> SearchResponse:
+        """Execute one request (a SearchRequest, or its fields as kwargs).
+
+        ``k`` falls back to the request default (DEFAULT_K, honoring a
+        legacy ``TwoLevelParams(k=...)`` stash). ids/scores come back
+        truncated to the requested ``k`` even when the engine executed at
+        a larger bucket.
+
+        ``k`` may also be a per-query [B] sequence (mixed-k batch): the
+        engine runs *once* at the bucket of the largest entry and each
+        row is truncated back to its own depth; slots beyond a row's k
+        hold the empty-queue sentinels (id -1, score -inf), and
+        ``SearchResponse.ks`` records the per-row depths."""
+        if request is None:
+            request = SearchRequest(
+                terms=terms, weights_b=weights_b, weights_l=weights_l,
+                dense=dense, k=k, threshold_factor=threshold_factor)
+        elif any(v is not None for v in (terms, weights_b, weights_l,
+                                         dense, k, threshold_factor)):
+            raise TypeError("pass either a SearchRequest or field kwargs, "
+                            "not both")
+        ks = resolve_ks(request.k, request.batch_size())
+        if ks is None:
+            k_req = resolve_k(self.params, request.k)
+        else:
+            k_req = int(ks.max())
+        k_exec = bucket_k(k_req, self.k_buckets)
+        params = self.params
+        if request.threshold_factor is not None:
+            params = params.replace(
+                threshold_factor=float(request.threshold_factor))
+
+        if request.terms is not None:
+            q_terms, qw_b, qw_l = _pad_queries(
+                request.terms, request.weights_b, request.weights_l)
+        else:
+            q_terms = qw_b = qw_l = None
+
+        t0 = time.perf_counter()
+        res = self.engine.search(q_terms, qw_b, qw_l, request.dense,
+                                 k=k_exec, params=params)
+        latency_ms = (time.perf_counter() - t0) * 1e3
+        ids = np.asarray(res.ids)[:, :k_req]
+        scores = np.asarray(res.scores)[:, :k_req]
+        if ks is None:
+            ks = np.full(ids.shape[0], k_req, np.int32)
+        elif (ks < k_req).any():
+            # mixed-k batch: mask each row beyond its own requested depth
+            # with the engines' empty-queue sentinels
+            dead = np.arange(k_req)[None, :] >= ks[:, None]
+            ids = np.where(dead, np.int32(-1), ids)
+            scores = np.where(dead, np.float32(-np.inf), scores)
+        return SearchResponse(
+            ids=ids, scores=scores,
+            engine=self.engine_name, k=k_req, k_exec=k_exec,
+            stats=res.stats, latency_ms=latency_ms,
+            latencies_ms=res.latencies_ms, ks=ks,
+            generation=self.generation)

@@ -1,0 +1,191 @@
+"""The port's search API against the JAX package's, and the port's
+independence from JAX.
+
+``Retriever.search`` is a facade over the engines: for the same request
+(mixed per-row k, ragged queries, threshold override) it must return what
+the reference's ``Retriever`` returns: ids equal, scores within
+``topk_scores_match``, per-row depths and stat counters equal.
+
+The port compiles nothing at run time (no ``torch.compile``, no CUDA
+graphs), so the reference's compile-once-per-bucket tests have no
+counterpart here."""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import topk_scores_match
+from repro.core import build_index as jax_build_index
+from repro.core import twolevel as jax_twolevel
+from repro.retrieval import Retriever as JaxRetriever
+from repro_torch import bridge
+from repro_torch.core import twolevel
+from repro_torch.core.traversal import STAT_KEYS
+from repro_torch.retrieval import (K_BUCKETS, Retriever, SearchRequest,
+                                   bucket_k, engine_names, get_engine)
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture(scope="module")
+def setup(small_corpus):
+    jidx = jax_build_index(small_corpus.merged("scaled"), tile_size=256)
+    tidx = bridge.index_from_arrays(
+        {f.name: (None if getattr(jidx, f.name) is None
+                  else np.asarray(getattr(jidx, f.name)))
+         for f in dataclasses.fields(jidx)}, device="cpu")
+    return small_corpus, jidx, tidx
+
+
+def _q(corpus, rows=slice(None)):
+    return dict(terms=corpus.queries[rows],
+                weights_b=corpus.q_weights_b[rows],
+                weights_l=corpus.q_weights_l[rows])
+
+
+def _assert_responses_match(ref, port):
+    np.testing.assert_array_equal(ref.ids, port.ids)
+    topk_scores_match(port.scores, ref.scores)
+    np.testing.assert_array_equal(ref.ks, port.ks)
+    assert (ref.k, ref.k_exec, ref.engine) == (port.k, port.k_exec,
+                                               port.engine)
+    for key in STAT_KEYS:
+        np.testing.assert_array_equal(ref.stats[key], port.stats[key])
+
+
+@pytest.mark.parametrize("engine,opts", [
+    ("batched", {}), ("batched", {"traversal": "chunked"}),
+    ("kernel", {"traversal": "chunked_fused", "chunk_tiles": 2})])
+def test_mixed_k_search_matches_reference(setup, engine, opts):
+    """One batch, per-row depths across two buckets: the engine runs once
+    at the largest row's bucket and masks each row past its own k."""
+    corpus, jidx, tidx = setup
+    ks = [5, 10, 42, 100, 7, 10, 1, 64, 10, 3, 99, 12]
+    ref = JaxRetriever.open(jidx, jax_twolevel.fast(), engine=engine,
+                            **opts).search(**_q(corpus), k=ks)
+    port = Retriever.open(tidx, twolevel.fast(), engine=engine,
+                          device="cpu", **opts).search(**_q(corpus), k=ks)
+    _assert_responses_match(ref, port)
+    assert port.k == 100 and port.k_exec == 100
+    assert (port.ids[0, 5:] == -1).all()
+    assert np.isneginf(port.scores[0, 5:]).all()
+
+
+def test_ragged_request_and_threshold_override_match_reference(setup):
+    corpus, jidx, tidx = setup
+    terms = [corpus.queries[i, :n] for i, n in enumerate([5, 3, 1, 4])]
+    wb = [corpus.q_weights_b[i, :len(t)] for i, t in enumerate(terms)]
+    wl = [corpus.q_weights_l[i, :len(t)] for i, t in enumerate(terms)]
+    req = dict(terms=terms, weights_b=wb, weights_l=wl, k=10,
+               threshold_factor=1.3)
+    ref = JaxRetriever.open(jidx, jax_twolevel.gti(), engine="kernel",
+                            traversal="chunked").search(**req)
+    port = Retriever.open(tidx, twolevel.gti(), engine="kernel",
+                          traversal="chunked", device="cpu").search(**req)
+    _assert_responses_match(ref, port)
+
+
+def test_sequential_engine_matches_batched(setup):
+    corpus, _, tidx = setup
+    q = _q(corpus, slice(0, 3))
+    seq = Retriever.open(tidx, twolevel.fast(), engine="sequential",
+                         device="cpu", warmup=False).search(**q, k=10)
+    bat = Retriever.open(tidx, twolevel.fast(), device="cpu").search(
+        **q, k=10)
+    np.testing.assert_array_equal(seq.ids, bat.ids)
+    assert seq.latencies_ms.shape == (3,)
+
+
+def test_registry_and_engine_options(setup):
+    _, _, tidx = setup
+    assert engine_names() == ("batched", "kernel", "sequential")
+    with pytest.raises(KeyError, match="batched"):
+        get_engine("sharded")
+    with pytest.raises(ValueError, match="traversal"):
+        Retriever.open(tidx, engine="batched", traversal="chunked_fused",
+                       device="cpu")
+    with pytest.raises(TypeError, match="BlockedImpactIndex"):
+        Retriever.open(object(), device="cpu")
+    r = Retriever.open(tidx, twolevel.fast(), engine="kernel",
+                       traversal="chunked", chunk_tiles=2, device="cpu")
+    rep = r.replicate()
+    assert rep.engine is not r.engine
+    assert rep.engine.index is r.engine.index          # shared tensors
+    assert (rep.engine.traversal, rep.engine.chunk_tiles) == ("chunked", 2)
+    assert bucket_k(11, K_BUCKETS) == 100 and bucket_k(2000) == 2000
+
+
+def test_request_object_tensors_and_validation(setup):
+    corpus, _, tidx = setup
+    r = Retriever.open(tidx, twolevel.fast(), device="cpu")
+    q = _q(corpus, slice(0, 3))
+    a = r.search(SearchRequest(**q, k=10))
+    b = r.search(terms=torch.from_numpy(q["terms"]).long(),
+                 weights_b=torch.from_numpy(q["weights_b"]),
+                 weights_l=torch.from_numpy(q["weights_l"]), k=10)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)
+    with pytest.raises(TypeError, match="either"):
+        r.search(SearchRequest(**q), k=5)
+    with pytest.raises(ValueError, match="entries"):
+        r.search(**q, k=[5, 10])
+    with pytest.raises(ValueError, match="whole"):
+        r.search(**q, k=[5.5, 10, 10])
+    with pytest.raises(ValueError, match="flat"):
+        r.search(terms=[1, 2, 3], weights_b=[1, 1, 1], weights_l=[1, 1, 1])
+
+
+def test_open_on_cuda_without_gpu_raises(setup):
+    _, _, tidx = setup
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Retriever.open(tidx, twolevel.fast())          # device="cuda"
+
+
+def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
+    """repro_torch runs with ``jax`` and ``repro`` unimportable: a finder
+    that refuses both is installed before anything is imported."""
+    script = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked: {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        from repro_torch.core import build_index, twolevel
+        from repro_torch.data import make_corpus
+        from repro_torch.retrieval import Retriever
+
+        c = make_corpus("splade_like", n_docs=1024, n_terms=256,
+                        n_queries=4, n_q_terms=4, avg_doc_terms=16, seed=3)
+        index = build_index(c.merged("scaled"), tile_size=256, device="cpu")
+        for engine, opts in (("kernel", {"traversal": "chunked_fused"}),
+                             ("kernel", {"traversal": "chunked"})):
+            r = Retriever.open(index, twolevel.fast(), engine=engine,
+                               device="cpu", **opts)
+            resp = r.search(terms=c.queries, weights_b=c.q_weights_b,
+                            weights_l=c.q_weights_l, k=10)
+            assert resp.ids.shape == (4, 10) and np.isfinite(resp.scores).all()
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not leaked, leaked
+        print("OK")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(SRC)
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          cwd=tmp_path, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
