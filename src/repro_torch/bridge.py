@@ -3,7 +3,8 @@
 This system has no weights: its state is the index. ``index_from_arrays``
 takes the fields of the reference's ``BlockedImpactIndex`` as numpy arrays
 (and ints) and returns the port's index on ``device``, so both packages
-search the same arrays. The port never imports the reference; callers
+search the same arrays; ``compressed_from_arrays`` does the same for the
+reference's ``CompressedImpactIndex``. The port never imports the reference; callers
 convert, e.g. ``{f.name: np.asarray(getattr(idx, f.name)) for f in
 dataclasses.fields(idx)}``.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from .core.index import TENSOR_FIELDS, BlockedImpactIndex, index_from_layout
+from .index.compressed import index_from_fields
 
 SCALAR_FIELDS = ("n_docs", "n_terms", "tile_size", "n_tiles", "pad_len")
 
@@ -29,3 +31,10 @@ def index_from_arrays(fields: dict[str, np.ndarray],
     orig = fields.get("orig_of_new")
     lay["orig_of_new"] = None if orig is None else np.asarray(orig)
     return index_from_layout(lay, device)
+
+
+# The port's CompressedImpactIndex on ``device`` from the reference
+# compressed index's fields (numpy arrays in its dtypes, and ints):
+# ``packed`` becomes a bitcast int32, ``first`` int32, the rest keeps its
+# dtype; ``orig_of_new`` (optional) stays a host array.
+compressed_from_arrays = index_from_fields

@@ -58,6 +58,8 @@ class BlockedImpactIndex:
     # orig_of_new[new_id] = original docid, or None for identity.
     orig_of_new: np.ndarray | None = None
 
+    gather_kind = "fp32"
+
     @property
     def nnz(self) -> int:
         return int(self.docids.shape[0])
@@ -65,6 +67,10 @@ class BlockedImpactIndex:
     @property
     def device(self) -> torch.device:
         return self.docids.device
+
+    def gather_arrays(self) -> tuple[torch.Tensor, ...]:
+        """Posting-side payload for ``dispatch_gather``."""
+        return (self.docids, self.w_b, self.w_l, self.tile_ptr)
 
     def nbytes(self) -> int:
         """Bytes the index's tensors hold on their device."""
@@ -238,3 +244,24 @@ def gather_tile(docids: torch.Tensor, w_b: torch.Tensor, w_l: torch.Tensor,
     if qw_l is not None:
         wl = wl * qw_l[..., None]
     return offs.to(torch.int32), wb, wl
+
+
+def dispatch_gather(kind: str, gt: tuple, q_terms: torch.Tensor,
+                    tile: torch.Tensor, qw_b: torch.Tensor | None = None,
+                    qw_l: torch.Tensor | None = None, *, pad_len: int,
+                    tile_size: int):
+    """Gather for either index type.
+
+    ``kind`` is the index's ``gather_kind`` ("fp32" | "q8") and ``gt`` its
+    ``gather_arrays()``. Both decode to the same (offs, wb, wl) padded-run
+    contract, so every executor above this call is codec-agnostic.
+    """
+    if kind == "fp32":
+        docids, w_b, w_l, tile_ptr = gt
+        return gather_tile(docids, w_b, w_l, tile_ptr, q_terms, tile,
+                           qw_b, qw_l, pad_len=pad_len, tile_size=tile_size)
+    if kind == "q8":
+        # imported here: repro_torch.index imports this module
+        from ..index.compressed import gather_tile_q
+        return gather_tile_q(gt, q_terms, tile, qw_b, qw_l, pad_len=pad_len)
+    raise ValueError(f"unknown gather kind: {kind!r}")

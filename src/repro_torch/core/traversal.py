@@ -31,9 +31,16 @@ the host:
   - ``retrieve_sequential``: per-query host loop with physical skipping.
 
 ``score_tile`` scores through the ``guided_score_tile`` kernel or its
-plain PyTorch version, as ``use_kernel`` chooses. Top-k selection uses a
-stable descending sort, which keeps the reference's tie rule: equal
-values keep their order, lower index first.
+plain PyTorch version, as ``use_kernel`` chooses. Either index type is
+served: the fp32 ``BlockedImpactIndex`` and the compressed
+``repro_torch.index.CompressedImpactIndex`` share the planner metadata and
+differ only in their gather (``core.index.dispatch_gather``). On the
+compressed index with ``use_kernel=True`` the executors pass undecoded
+rows to the decode-in-kernel ``guided_score_tile_q`` /
+``guided_score_chunk_q``, whose 6th row (postings per slot) gives the
+presence and postings stats. Top-k selection uses a stable descending
+sort, which keeps the reference's tie rule: equal values keep their
+order, lower index first.
 """
 from __future__ import annotations
 
@@ -44,9 +51,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels.guided_score import (guided_score_chunk, guided_score_tile,
-                                    guided_score_tile_plain)
-from .index import BlockedImpactIndex, gather_tile
+from ..kernels.guided_score import (guided_score_chunk, guided_score_chunk_q,
+                                    guided_score_tile, guided_score_tile_plain,
+                                    guided_score_tile_q)
+from .index import BlockedImpactIndex, dispatch_gather
 from .plan import (QueryPlan, chunk_schedule, essential_terms,
                    freeze_bounds, plan_query, term_bounds, tile_schedule,
                    tile_upper_bounds)
@@ -123,16 +131,32 @@ def _slot_presence(offs, tile_size: int):
     return (cnt[..., :tile_size] > 0).sum(-1).float()
 
 
-def _candidates(out, offs, tile_size: int, kq: int):
-    """From a scorer's rows ``out`` [..., 5, S]: the top-``kq`` candidates
-    of Global and Local (eval mask) and Rank (rank mask), and the stat
-    counters [..., 4]. Presence is counted from the gathered offsets."""
-    g, l, r, eval_m, rank_m = out.unbind(-2)
+def _offs_counts(offs, tile_size: int):
+    """(present slots, valid postings) per (row, tile) from gathered
+    offsets."""
+    return (_slot_presence(offs, tile_size),
+            (offs >= 0).sum((-2, -1)).float())
+
+
+def _row5_counts(out):
+    """(present slots, valid postings) per (row, tile) from a q8 scorer's
+    6th row, the postings per slot."""
+    slot_cnt = out[..., 5, :]
+    return (slot_cnt > 0).sum(-1).float(), slot_cnt.sum(-1)
+
+
+def _candidates(out, counts, kq: int):
+    """From a scorer's rows ``out`` [..., 5 (or 6), S]: the top-``kq``
+    candidates of Global and Local (eval mask) and Rank (rank mask), and
+    the stat counters [..., 4]. ``counts`` are the (present, postings)
+    pair of ``_offs_counts`` or ``_row5_counts``."""
+    g, l, r, eval_m, rank_m = out[..., :5, :].unbind(-2)
     eval_mask = eval_m > 0
     rank_mask = rank_m > 0
-    stats = torch.stack([_slot_presence(offs, tile_size), rank_m.sum(-1),
+    present, postings = counts
+    stats = torch.stack([present, rank_m.sum(-1),
                          (rank_mask & ~eval_mask).sum(-1).float(),
-                         (offs >= 0).sum((-2, -1)).float()], -1)
+                         postings], -1)
     return (_tile_topk(g, eval_mask, kq), _tile_topk(l, eval_mask, kq),
             _tile_topk(r, rank_mask, kq), stats)
 
@@ -154,13 +178,15 @@ def score_tile(offs, wb, wl, essential, prefix_beta, th_lo,
     score = guided_score_tile if use_kernel else guided_score_tile_plain
     out = score(offs, wb, wl, essential.float(), prefix_beta, th_lo,
                 alpha, beta, gamma, tile_size=tile_size)
-    return _candidates(out, offs, tile_size, kq)
+    return _candidates(out, _offs_counts(offs, tile_size), kq)
 
 
 @dataclasses.dataclass
 class Context:
     """What every step of one retrieve call reads: the index, the plans,
-    the f32 coefficients and the sizes (``make_context`` builds it)."""
+    the f32 coefficients and the sizes (``make_context`` builds it).
+    ``raw_q8``: the scorers decode in-kernel (compressed index and
+    ``use_kernel``), so the steps gather undecoded rows."""
     index: BlockedImpactIndex
     plan: QueryPlan
     alpha: float       # float32 values held as Python floats (see _f32)
@@ -171,6 +197,10 @@ class Context:
     kq: int
     bound_mode: str
     use_kernel: bool = False
+
+    @property
+    def raw_q8(self) -> bool:
+        return self.use_kernel and self.index.gather_kind == "q8"
 
 
 def _thresholds(ctx: Context, carry: Carry):
@@ -209,12 +239,13 @@ class StepInputs(NamedTuple):
     """What a scorer reads for one tile ([B]) or one chunk ([B, C]) per row:
     the planner's decisions and the gathered runs."""
     skip: torch.Tensor         # [B(, C)] bool
-    offs: torch.Tensor         # [B(, C), Nq, P] int32, -1 = padding
-    wb: torch.Tensor           # [B(, C), Nq, P] f32 query-weighted
-    wl: torch.Tensor
     essential: torch.Tensor    # [B(, C), Nq] bool
     prefix_beta: torch.Tensor  # [B(, C), Nq] f32
     th_lo: torch.Tensor        # [B] f32
+    # (offs, wb, wl) query-weighted, [B(, C), Nq, P]; or, when
+    # ``ctx.raw_q8``, the raw q8 rows (words, qb_row, ql_row, meta_i,
+    # meta_f) of ``index.compressed.gather_tile_q_raw``
+    rows: tuple
 
 
 def step_inputs(ctx: Context, carry: Carry, tiles,
@@ -232,13 +263,18 @@ def step_inputs(ctx: Context, carry: Carry, tiles,
     skip = ub_gl <= th_gl
     if n_valid is not None:
         skip = skip | (tiles >= n_valid)
-    offs, wb, wl = gather_tile(index.docids, index.w_b, index.w_l,
-                               index.tile_ptr, plan.qt[lead], tiles,
-                               plan.qwb[lead], plan.qwl[lead],
-                               pad_len=index.pad_len,
+    if ctx.raw_q8:
+        # imported here: repro_torch.index imports this package
+        from ..index.compressed import gather_tile_q_raw
+        rows = gather_tile_q_raw(index.gather_arrays(), plan.qt[lead], tiles,
+                                 pad_len=index.pad_len)
+    else:
+        rows = dispatch_gather(index.gather_kind, index.gather_arrays(),
+                               plan.qt[lead], tiles, plan.qwb[lead],
+                               plan.qwl[lead], pad_len=index.pad_len,
                                tile_size=index.tile_size)
-    return StepInputs(skip, offs, wb, wl, essential_terms(m_alpha, th_gl),
-                      freeze_bounds(m_beta), th_lo)
+    return StepInputs(skip, essential_terms(m_alpha, th_gl),
+                      freeze_bounds(m_beta), th_lo, rows)
 
 
 def _tile_step(ctx: Context, carry: Carry, tile,
@@ -246,10 +282,17 @@ def _tile_step(ctx: Context, carry: Carry, tile,
     """One tile visit per row (``tile`` [B]): plan bounds -> skip test ->
     score -> queue merge."""
     x = step_inputs(ctx, carry, tile, n_valid)
-    *cands, stats = score_tile(x.offs, x.wb, x.wl, x.essential,
-                               x.prefix_beta, x.th_lo, ctx.alpha, ctx.beta,
-                               ctx.gamma, tile_size=ctx.index.tile_size,
-                               kq=ctx.kq, use_kernel=ctx.use_kernel)
+    coef = (ctx.alpha, ctx.beta, ctx.gamma)
+    tile_size = ctx.index.tile_size
+    if ctx.raw_q8:
+        out = guided_score_tile_q(*x.rows, ctx.plan.qwb, ctx.plan.qwl,
+                                  x.essential.float(), x.prefix_beta,
+                                  x.th_lo, *coef, tile_size=tile_size)
+        *cands, stats = _candidates(out, _row5_counts(out), ctx.kq)
+    else:
+        *cands, stats = score_tile(*x.rows, x.essential, x.prefix_beta,
+                                   x.th_lo, *coef, tile_size=tile_size,
+                                   kq=ctx.kq, use_kernel=ctx.use_kernel)
     cands = [(v[:, None], i[:, None]) for v, i in cands]
     _merge_candidates(ctx, carry, cands, tile[:, None], x.skip[:, None])
     _add_stats(carry, stats[:, None], x.skip[:, None])
@@ -271,7 +314,7 @@ def _chunk_scan(ctx: Context, carry: Carry, tiles_chunk,
 def _chunk_step_fused(ctx: Context, carry: Carry, tiles_chunk,
                       n_valid: int) -> Carry:
     """Advance every row over one chunk ([B, C]) with one
-    ``guided_score_chunk`` launch.
+    ``guided_score_chunk`` (q8: ``guided_score_chunk_q``) launch.
 
     The skip predicate, essential partition and freeze bounds of every tile
     in the chunk derive from the *chunk-start* thresholds (the carry is
@@ -280,11 +323,16 @@ def _chunk_step_fused(ctx: Context, carry: Carry, tiles_chunk,
     different, still bound-safe, threshold trajectory."""
     tile_size = ctx.index.tile_size
     x = step_inputs(ctx, carry, tiles_chunk, n_valid)
-    out = guided_score_chunk(x.offs, x.wb, x.wl, x.essential.float(),
-                             x.prefix_beta, x.skip.to(torch.int32), x.th_lo,
-                             ctx.alpha, ctx.beta, ctx.gamma,
-                             tile_size=tile_size)
-    *cands, stats = _candidates(out, x.offs, tile_size, ctx.kq)
+    args = (x.essential.float(), x.prefix_beta, x.skip.to(torch.int32),
+            x.th_lo, ctx.alpha, ctx.beta, ctx.gamma)
+    if ctx.raw_q8:
+        out = guided_score_chunk_q(*x.rows, ctx.plan.qwb, ctx.plan.qwl,
+                                   *args, tile_size=tile_size)
+        counts = _row5_counts(out)
+    else:
+        out = guided_score_chunk(*x.rows, *args, tile_size=tile_size)
+        counts = _offs_counts(x.rows[0], tile_size)
+    *cands, stats = _candidates(out, counts, ctx.kq)
     _merge_candidates(ctx, carry, cands, tiles_chunk, x.skip)
     _add_stats(carry, stats, x.skip)
     return carry
@@ -347,6 +395,10 @@ def retrieve_batched(index: BlockedImpactIndex, q_terms, qw_b, qw_l,
                      traversal: str = "full",
                      chunk_tiles: int | None = None) -> RetrievalResult:
     """Batched retrieval: q_terms [B, Nq] int32 (pad with qw = 0).
+
+    ``index`` may be a ``BlockedImpactIndex`` or a
+    ``repro_torch.index.CompressedImpactIndex`` (decoded in the gather, or
+    in the ``_q`` kernels when ``use_kernel=True``).
 
     ``k`` is the retrieval depth for this call (falls back to the
     deprecated ``params.k`` stash, then DEFAULT_K). ``use_kernel=True``

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("guided_score.cu",)
+SOURCES = ("guided_score.cu", "guided_score_q.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -32,11 +32,19 @@ _F = ctypes.c_float
 # out, B, C, Nq, P, tile_size, block_s, stream
 _GUIDED_ARGS = [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _P,
                 _I, _I, _I, _I, _I, _I, _P]
+# words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l, essential,
+# prefix_beta, skip, th_lo, alpha, beta, gamma, out, B, C, Nq, Wp, P,
+# tile_size, block_s, stream
+_GUIDED_Q_ARGS = [_P] * 11 + [_F, _F, _F, _P] + [_I] * 7 + [_P]
 SIGNATURES = {
     "guided_score.cu": {
         "guided_score_tile_launch": _GUIDED_ARGS,
         "guided_score_chunk_launch": _GUIDED_ARGS,
         "error_string": [_I],
+    },
+    "guided_score_q.cu": {
+        "guided_score_tile_q_launch": _GUIDED_Q_ARGS,
+        "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
     },
 }
 _RESTYPES = {"error_string": ctypes.c_char_p}

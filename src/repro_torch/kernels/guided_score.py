@@ -10,6 +10,15 @@ Two kernels, each with a plain PyTorch version of the same contract:
     tiles per query with a per-tile skip flag. Replaces ``repro/kernels/
     guided_score.py::guided_score_chunk`` (body ``_chunk_kernel``).
 
+and their decode-in-kernel twins for the compressed (q8) index, which
+take undecoded rows (``index.compressed.gather_tile_q_raw``), decode them
+as ``decode_rows`` does and add a 6th output row, postings per slot:
+
+  - ``guided_score_tile_q``  [B, Nq, ...] -> [B, 6, S]. Replaces
+    ``guided_score_tile_q`` (body ``_kernel_q`` + ``_decode_rows``).
+  - ``guided_score_chunk_q`` [B, C, Nq, ...] -> [B, C, 6, S]. Replaces
+    ``guided_score_chunk_q`` (body ``_chunk_kernel_q`` + ``_decode_rows``).
+
 Per (query, tile) both compute, over the tile's S doc slots:
   1. scatter each term's padded posting run (``offs``, -1 = padding) into
      dense rows; a slot survives when an essential term has a posting there;
@@ -18,7 +27,7 @@ Per (query, tile) both compute, over the tile's S doc slots:
      surviving live slots accumulate both weights;
   3. rows Global/Local/Rank (alpha/beta/gamma combinations of the sums),
      the eval mask (survive & alive) and the rank mask (survive).
-A skipped tile of a chunk publishes five zero rows.
+A skipped tile of a chunk publishes five (q8: six) zero rows.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel (or raises). There is no fallback.
@@ -37,7 +46,8 @@ each run's data. The design stores each posting straight into shared
 memory (no atomics: one posting per (term, slot); the TPU's one-hot
 matrix product is not needed), keeps the dense rows out of device
 memory, and writes each output element once. A skipped tile costs one
-flag read and its zero rows.
+flag read and its zero rows. The q8 kernels' design and bound are in
+``csrc/guided_score_q.cu``.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 
 N_ROWS = 5          # Global, Local, Rank, eval mask, rank mask
+N_ROWS_Q = 6        # the same, then postings per slot
 # Doc slots per thread block: 16 terms x 512 slots x 2 weights x 4 B = 64 KB
 # of shared memory; the launcher halves it when more terms would not fit.
 BLOCK_S = 512
@@ -119,6 +130,74 @@ def guided_score_chunk_plain(offs, wb, wl, essential, prefix_beta, skip,
     return torch.where((skip != 0)[..., None, None], 0.0, out)
 
 
+def decode_rows(words, qb_row, ql_row, meta_i, meta_f, qw_b=None, qw_l=None):
+    """Decode raw q8 rows into the fp32 gather's (offs, wb, wl) contract.
+
+    ``words`` [..., Nq, Wp] int32 packed gap words, ``qb_row``/``ql_row``
+    [..., Nq, P] uint8 codes, ``meta_i`` [..., 3, Nq] int32 (cnt, first,
+    width), ``meta_f`` [..., 4, Nq] f32 (zero_b, scale_b, zero_l,
+    scale_l), ``qw_b``/``qw_l`` [..., Nq] (omitted = unweighted). Posting j
+    of a row is valid while ``j < cnt``; its gap is ``(word >> (bitpos &
+    31)) & (2^w - 1)`` at ``bitpos = (j - 1) * w`` (the word index clamped
+    to Wp - 1, as the TPU kernel clamps it); offsets are ``first`` plus
+    the inclusive cumsum of ``gap + 1``; impacts dequantize as ``(zero +
+    scale * q) * qw``, each product and sum rounded in float32 (``scale *
+    q`` is exact). Padding gets offset -1 and weight 0.
+    """
+    p, wp = qb_row.shape[-1], words.shape[-1]
+    cnt, first, width = (meta_i[..., r, :, None].long() for r in range(3))
+    j = torch.arange(p, device=words.device)
+    bitpos = (j - 1).clamp(min=0) * width                     # [..., Nq, P]
+    word = torch.gather(words, -1, (bitpos >> 5).clamp(max=wp - 1))
+    gap = ((word.long() & 0xFFFFFFFF) >> (bitpos & 31)) & ((1 << width) - 1)
+    valid = j < cnt
+    offs = torch.where(valid, torch.where(j == 0, first, gap + 1).cumsum(-1),
+                       -1).to(torch.int32)
+
+    def deq(codes, r, qw):
+        zero, scale = meta_f[..., r, :, None], meta_f[..., r + 1, :, None]
+        w = torch.where(valid, zero + scale * codes.float(), 0.0)
+        return w if qw is None else w * qw[..., None]
+    return offs, deq(qb_row, 0, qw_b), deq(ql_row, 2, qw_l)
+
+
+def _with_slot_counts(out, offs, tile_size: int):
+    """Rows [..., 5, S] plus the 6th: valid postings per slot."""
+    cnt = _scatter_rows(offs, (offs >= 0).float(), tile_size).sum(-2)
+    return torch.cat([out, cnt[..., None, :]], -2)
+
+
+def guided_score_tile_q_plain(words, qb_row, ql_row, meta_i, meta_f, qw_b,
+                              qw_l, essential, prefix_beta, th_lo, alpha,
+                              beta, gamma, *, tile_size: int):
+    """Plain version of ``guided_score_tile_q``: leading dims ``[...]`` (one
+    tile per row), raw rows as ``decode_rows`` takes them, ``qw_b``/
+    ``qw_l``/``essential``/``prefix_beta`` [..., Nq], ``th_lo`` [...] ->
+    [..., 6, S] f32."""
+    offs, wb, wl = decode_rows(words, qb_row, ql_row, meta_i, meta_f, qw_b,
+                               qw_l)
+    out = guided_score_tile_plain(offs, wb, wl, essential, prefix_beta,
+                                  th_lo, alpha, beta, gamma,
+                                  tile_size=tile_size)
+    return _with_slot_counts(out, offs, tile_size)
+
+
+def guided_score_chunk_q_plain(words, qb_row, ql_row, meta_i, meta_f, qw_b,
+                               qw_l, essential, prefix_beta, skip, th_lo,
+                               alpha, beta, gamma, *, tile_size: int):
+    """Plain version of ``guided_score_chunk_q``: raw rows [B, C, ...],
+    ``qw_b``/``qw_l`` [B, Nq] (one query's weights for all its tiles),
+    ``essential``/``prefix_beta`` [B, C, Nq], ``skip`` [B, C] (nonzero =
+    skip), ``th_lo`` [B] -> [B, C, 6, S] f32; skipped tiles publish
+    zeros."""
+    th = th_lo[:, None].expand(skip.shape)
+    out = guided_score_tile_q_plain(words, qb_row, ql_row, meta_i, meta_f,
+                                    qw_b[:, None], qw_l[:, None], essential,
+                                    prefix_beta, th, alpha, beta, gamma,
+                                    tile_size=tile_size)
+    return torch.where((skip != 0)[..., None, None], 0.0, out)
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -133,11 +212,34 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _call(source: str, fn_name: str, inputs, coefs, out,
+          sizes) -> torch.Tensor:
+    """Launch ``fn_name`` of ``source``'s library on the current stream:
+    the input pointers (None for an absent one), the float coefficients,
+    the output pointer, the sizes, ``BLOCK_S`` and the stream. Raises when
+    the launcher returns a CUDA error."""
+    from . import build
+    if out.numel() == 0:
+        return out
+    lib = build.load(source)
+    ptr = ctypes.c_void_p
+    dev = out.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn_name)(
+            *(ptr(None if t is None else t.data_ptr()) for t in inputs),
+            *(ctypes.c_float(x) for x in coefs), ptr(out.data_ptr()),
+            *sizes, BLOCK_S, ptr(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: {build.error_string(rc)} "
+                           f"(cudaError {rc})")
+    return out
+
+
 def _launch(fn_name: str, offs, wb, wl, essential, prefix_beta, skip, th_lo,
             alpha, beta, gamma, *, b: int, c: int,
             tile_size: int) -> torch.Tensor:
     """Validate the inputs and launch one kernel on the current stream."""
-    from . import build
     dev = offs.device
     nq, p = offs.shape[-2:]
     _check("offs", offs, torch.int32, (b, c, nq, p) if skip is not None
@@ -153,30 +255,15 @@ def _launch(fn_name: str, offs, wb, wl, essential, prefix_beta, skip, th_lo,
         raise ValueError(f"tile_size={tile_size} must be >= 1")
     out = torch.empty(offs.shape[:-2] + (N_ROWS, tile_size),
                       dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    lib = build.load()
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn_name)(
-            ptr(offs.data_ptr()), ptr(wb.data_ptr()), ptr(wl.data_ptr()),
-            ptr(essential.data_ptr()), ptr(prefix_beta.data_ptr()),
-            ptr(skip.data_ptr() if skip is not None else None),
-            ptr(th_lo.data_ptr()), ctypes.c_float(alpha),
-            ctypes.c_float(beta), ctypes.c_float(gamma),
-            ptr(out.data_ptr()), b, c, nq, p, tile_size, BLOCK_S,
-            ptr(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: {build.error_string(rc)} "
-                           f"(cudaError {rc})")
-    return out
+    return _call("guided_score.cu", fn_name,
+                 (offs, wb, wl, essential, prefix_beta, skip, th_lo),
+                 (alpha, beta, gamma), out, (b, c, nq, p, tile_size))
 
 
-def _device_of(offs: torch.Tensor) -> str:
-    if offs.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"guided_score: unsupported device {offs.device}")
-    return offs.device.type
+def _device_of(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"guided_score: unsupported device {t.device}")
+    return t.device.type
 
 
 def guided_score_tile(offs, wb, wl, essential, prefix_beta, th_lo,
@@ -217,10 +304,90 @@ def guided_score_chunk(offs, wb, wl, essential, prefix_beta, skip, th_lo,
     return out
 
 
+def _launch_q(fn_name: str, words, qb_row, ql_row, meta_i, meta_f, qw_b,
+              qw_l, essential, prefix_beta, skip, th_lo, alpha, beta, gamma,
+              *, b: int, c: int, tile_size: int) -> torch.Tensor:
+    """Validate the raw q8 inputs and launch one kernel on the current
+    stream."""
+    dev = words.device
+    nq, wp = words.shape[-2:]
+    p = qb_row.shape[-1]
+    lead = (b, c) if skip is not None else (b,)
+    _check("words", words, torch.int32, lead + (nq, wp), dev)
+    for name, t in (("qb_row", qb_row), ("ql_row", ql_row)):
+        _check(name, t, torch.uint8, lead + (nq, p), dev)
+    _check("meta_i", meta_i, torch.int32, lead + (3, nq), dev)
+    _check("meta_f", meta_f, torch.float32, lead + (4, nq), dev)
+    for name, t in (("qw_b", qw_b), ("qw_l", qw_l)):
+        _check(name, t, torch.float32, (b, nq), dev)
+    for name, t in (("essential", essential), ("prefix_beta", prefix_beta)):
+        _check(name, t, torch.float32, lead + (nq,), dev)
+    _check("th_lo", th_lo, torch.float32, (b,), dev)
+    if skip is not None:
+        _check("skip", skip, torch.int32, (b, c), dev)
+    if tile_size < 1:
+        raise ValueError(f"tile_size={tile_size} must be >= 1")
+    out = torch.empty(lead + (N_ROWS_Q, tile_size), dtype=torch.float32,
+                      device=dev)
+    return _call("guided_score_q.cu", fn_name,
+                 (words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l,
+                  essential, prefix_beta, skip, th_lo),
+                 (alpha, beta, gamma), out, (b, c, nq, wp, p, tile_size))
+
+
+def guided_score_tile_q(words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l,
+                        essential, prefix_beta, th_lo, alpha, beta, gamma,
+                        *, tile_size: int):
+    """Decode and score one q8 tile per query -> [B, 6, S].
+
+    ``words`` [B, Nq, Wp] int32, ``qb_row``/``ql_row`` [B, Nq, P] uint8,
+    ``meta_i`` [B, 3, Nq] int32, ``meta_f`` [B, 4, Nq] f32 (from
+    ``gather_tile_q_raw``), ``qw_b``/``qw_l``/``essential``/``prefix_beta``
+    [B, Nq] f32, ``th_lo`` [B] f32. Rows 0-4 as ``guided_score_tile``, row
+    5 the valid postings per slot. CPU tensors run the plain version; CUDA
+    tensors launch the kernel (counted in ``.launches``)."""
+    if _device_of(words) == "cpu":
+        return guided_score_tile_q_plain(
+            words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l, essential,
+            prefix_beta, th_lo, alpha, beta, gamma, tile_size=tile_size)
+    out = _launch_q("guided_score_tile_q_launch", words, qb_row, ql_row,
+                    meta_i, meta_f, qw_b, qw_l, essential, prefix_beta, None,
+                    th_lo, _scalar(alpha), _scalar(beta), _scalar(gamma),
+                    b=words.shape[0], c=1, tile_size=tile_size)
+    guided_score_tile_q.launches += 1
+    return out
+
+
+def guided_score_chunk_q(words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l,
+                         essential, prefix_beta, skip, th_lo, alpha, beta,
+                         gamma, *, tile_size: int):
+    """Decode and score a chunk of C q8 tiles per query -> [B, C, 6, S].
+
+    Raw rows [B, C, ...] as ``guided_score_tile_q`` takes them per tile,
+    ``qw_b``/``qw_l`` [B, Nq] f32, ``essential``/``prefix_beta`` [B, C, Nq]
+    f32 (chunk-start thresholds), ``skip`` [B, C] int32 (nonzero = publish
+    zeros), ``th_lo`` [B] f32. CPU tensors run the plain version; CUDA
+    tensors launch the kernel (counted in ``.launches``)."""
+    if _device_of(words) == "cpu":
+        return guided_score_chunk_q_plain(
+            words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l, essential,
+            prefix_beta, skip, th_lo, alpha, beta, gamma,
+            tile_size=tile_size)
+    out = _launch_q("guided_score_chunk_q_launch", words, qb_row, ql_row,
+                    meta_i, meta_f, qw_b, qw_l, essential, prefix_beta, skip,
+                    th_lo, _scalar(alpha), _scalar(beta), _scalar(gamma),
+                    b=words.shape[0], c=words.shape[1], tile_size=tile_size)
+    guided_score_chunk_q.launches += 1
+    return out
+
+
 guided_score_tile.launches = 0
 guided_score_chunk.launches = 0
+guided_score_tile_q.launches = 0
+guided_score_chunk_q.launches = 0
 
-KERNELS = (guided_score_chunk, guided_score_tile)
+KERNELS = (guided_score_chunk, guided_score_tile, guided_score_chunk_q,
+           guided_score_tile_q)
 
 
 def reset_launches() -> None:

@@ -8,6 +8,7 @@ never a different pruning algorithm:
 
     "batched"     batched tile scan, plain torch scorer
     "kernel"      same scan, guided_score CUDA kernels on a GPU index
+                  (their decode-in-kernel ``_q`` twins on a compressed one)
     "sequential"  host tile loop, physical skips + timings
 
 Third-party backends register with ``@register_engine("name")``; the class
@@ -22,6 +23,7 @@ from ..core.index import BlockedImpactIndex
 from ..core.traversal import (RetrievalResult, retrieve_batched,
                               retrieve_sequential)
 from ..core.twolevel import TwoLevelParams
+from ..index.compressed import CompressedImpactIndex
 
 _REGISTRY: dict[str, type] = {}
 
@@ -65,12 +67,12 @@ class Engine(Protocol):
         ...
 
 
-def _require_bii(index, engine: str, device) -> BlockedImpactIndex:
-    """``index`` on ``device`` (moved there if it lives elsewhere; asking
-    for CUDA without a GPU raises)."""
-    if not isinstance(index, BlockedImpactIndex):
-        raise TypeError(f"engine {engine!r} needs a BlockedImpactIndex, "
-                        f"got {type(index).__name__}")
+def _require_bii(index, engine: str, device):
+    """``index`` (fp32 or compressed) on ``device`` (moved there if it
+    lives elsewhere; asking for CUDA without a GPU raises)."""
+    if not isinstance(index, (BlockedImpactIndex, CompressedImpactIndex)):
+        raise TypeError(f"engine {engine!r} needs a BlockedImpactIndex or "
+                        f"CompressedImpactIndex, got {type(index).__name__}")
     return index.to(device)
 
 
@@ -119,8 +121,10 @@ class KernelEngine(BatchedEngine):
     ``traversal="full"``/``"chunked"`` score tile by tile through
     ``guided_score_tile``; ``"chunked_fused"`` scores each chunk with one
     ``guided_score_chunk`` launch (chunk-start thresholds: rank-safe
-    exact, guided within the usual tolerance). On a CPU index the kernels'
-    plain versions run instead."""
+    exact, guided within the usual tolerance). On a compressed index the
+    decode-in-kernel twins ``guided_score_tile_q`` / ``guided_score_chunk_q``
+    take their place. On a CPU index the kernels' plain versions run
+    instead."""
 
     use_kernel = True
     traversals = ("full", "chunked", "chunked_fused")

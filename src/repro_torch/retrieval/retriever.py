@@ -1,6 +1,7 @@
 """The ``Retriever`` facade: one search entry point over every engine.
 
     index = build_index(corpus.merged("scaled"), tile_size=512)   # on cuda
+    # or: index = compress_index(corpus.merged("scaled"), tile_size=512)
     r = Retriever.open(index, twolevel.fast(), engine="kernel",
                        traversal="chunked_fused")
     resp = r.search(terms=q_terms, weights_b=qw_b, weights_l=qw_l, k=10)
@@ -78,10 +79,11 @@ class Retriever:
     def open(cls, index, params: TwoLevelParams | None = None,
              engine: str = "batched", *, device="cuda", k_buckets=K_BUCKETS,
              generation: int = 0, **engine_opts) -> "Retriever":
-        """Build a retriever: ``index`` + pruning ``params`` + an engine
-        name from the registry. The index is served from ``device``
-        (moved there if it lives elsewhere; asking for CUDA without a GPU
-        raises). ``engine_opts`` go to the engine constructor
+        """Build a retriever: ``index`` (a ``BlockedImpactIndex`` or a
+        ``repro_torch.index.CompressedImpactIndex``) + pruning ``params``
+        + an engine name from the registry. The index is served from
+        ``device`` (moved there if it lives elsewhere; asking for CUDA
+        without a GPU raises). ``engine_opts`` go to the engine constructor
         (``traversal=...``, ``chunk_tiles=...`` for ``"batched"`` /
         ``"kernel"``, ``warmup=False`` for ``"sequential"``)."""
         params = params if params is not None else TwoLevelParams()

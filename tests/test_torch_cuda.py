@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+searches on the card against the same searches on the CPU.
 
 Marked ``cuda``: without a CUDA device every test skips (the decision is
 made in the ``cuda`` fixture, at run time). This file imports neither JAX
@@ -13,6 +14,8 @@ import torch
 
 from repro_torch.core import build_index, twolevel
 from repro_torch.data import make_corpus
+from repro_torch.index import (compress_index, encode_runs,
+                               from_encoded_grids, gather_tile_q_raw)
 from repro_torch.kernels import guided_score as gs
 from repro_torch.retrieval import Retriever
 
@@ -115,5 +118,109 @@ def test_search_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(on_card.scores, on_cpu.scores,
                                    rtol=1e-6)
         for key in ("tiles_visited", "docs_survived", "chunks_dispatched"):
+            np.testing.assert_array_equal(on_card.stats[key],
+                                          on_cpu.stats[key])
+
+
+# gap width -> the least encoded value (gap - 1) that needs it
+WIDTH_MIN = {1: 1, 2: 2, 4: 4, 8: 16, 16: 256}
+
+
+def _q8_rows(rng, lead, nq, p, s):
+    """Raw q8 rows [*lead, ...] of real encoded runs (``encode_runs``, one
+    term per (row, term) of a one-tile index of S >= 384 docs), fetched by
+    ``gather_tile_q_raw`` at ``pad_len = p``. Run r has gap width
+    ``list(WIDTH_MIN)[r % 5]`` (its first gap sets it, the others are no
+    larger); the first three runs hold 0, 1 and min(P, S) postings. Past a
+    run's end the rows hold the next run's words and codes, as on the main
+    path."""
+    n = int(np.prod(lead)) * nq
+    locs = []
+    for r in range(n):
+        lo = list(WIDTH_MIN.values())[r % len(WIDTH_MIN)]
+        gaps = rng.integers(0, lo + 1, size=p) + 1
+        gaps[0] = lo + 1
+        loc = int(rng.integers(0, s // 8)) + np.concatenate(
+            [[0], np.cumsum(gaps)])
+        loc = loc[loc < s][:int(rng.integers(2, p + 1))]
+        if r < 3:
+            loc = np.arange(min(p, s))[:(0, 1, p)[r]]
+        locs.append(loc)
+    cnt = np.array([len(x) for x in locs], np.int64)
+    run_of = np.repeat(np.arange(n), cnt)
+    w_b = (rng.random(cnt.sum()) * 3).astype(np.float32)
+    w_l = (rng.random(cnt.sum()) * 5).astype(np.float32)
+    enc = encode_runs(np.concatenate(locs), w_b, w_l, run_of, cnt)
+    tmax = [np.zeros((n, 1), np.float32) for _ in range(2)]
+    for tm, w in zip(tmax, (w_b, w_l)):
+        np.maximum.at(tm[:, 0], run_of, w)
+    index = from_encoded_grids(
+        s, n, s, cnt[:, None], enc["words"][:, None], enc["packed"],
+        enc["qb"], enc["ql"], enc["width"], enc["first"], enc["scale_b"],
+        enc["zero_b"], enc["scale_l"], enc["zero_l"], *tmax,
+        device="cpu")
+    terms = torch.arange(n, dtype=torch.int32).reshape(lead + (nq,))
+    return gather_tile_q_raw(index.gather_arrays(), terms,
+                             torch.zeros(lead, dtype=torch.int32), pad_len=p)
+
+
+@pytest.mark.parametrize("b,c,nq,p,s", [
+    (3, 4, 5, 96, 384), (2, 3, 16, 2048, 2048), (2, 2, 64, 128, 1024),
+    (4, 2, 7, 300, 1000)])
+def test_q8_kernels_equal_plain_on_card(cuda, b, c, nq, p, s):
+    """Masks and posting counts identical, scores bit-equal, on runs of
+    every gap width, empty and full runs and padded terms (qw = 0)."""
+    rng = np.random.default_rng(b * 100 + nq)
+    rows = [t.to(cuda) for t in _q8_rows(rng, (b, c), nq, p, s)]
+    assert set(rows[3][..., 2, :].unique().tolist()) == set(WIDTH_MIN)
+    qw = rng.random((2, b, nq)).astype(np.float32) * 2
+    qw[:, :, -1] = 0.0
+    qw_b, qw_l = (torch.from_numpy(a).to(cuda) for a in qw)
+    ess = torch.from_numpy((rng.random((b, c, nq)) < 0.5).astype(
+        np.float32)).to(cuda)
+    pb = torch.from_numpy(np.cumsum(rng.random((b, c, nq)), -1).astype(
+        np.float32)).to(cuda)
+    skip = torch.from_numpy((rng.random((b, c)) < 0.4).astype(np.int32)).to(
+        cuda)
+    th = torch.from_numpy(rng.random(b).astype(np.float32) * 3).to(cuda)
+    args = (*rows, qw_b, qw_l, ess, pb, skip, th, 0.7, 0.2, 0.05)
+    torch.testing.assert_close(gs.guided_score_chunk_q(*args, tile_size=s),
+                               gs.guided_score_chunk_q_plain(*args,
+                                                             tile_size=s),
+                               rtol=0, atol=0)
+    targs = (*(t[:, 0].contiguous() for t in rows), qw_b, qw_l,
+             ess[:, 0].contiguous(), pb[:, 0].contiguous(), th, 1.0, 0.3,
+             0.05)
+    torch.testing.assert_close(gs.guided_score_tile_q(*targs, tile_size=s),
+                               gs.guided_score_tile_q_plain(*targs,
+                                                            tile_size=s),
+                               rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+def test_q8_search_on_card_matches_cpu(cuda):
+    corpus = make_corpus("splade_like", n_docs=8192, n_terms=2048,
+                         n_queries=16, n_q_terms=8, avg_doc_terms=24, seed=2)
+    merged = corpus.merged("scaled")
+    q = dict(terms=corpus.queries, weights_b=corpus.q_weights_b,
+             weights_l=corpus.q_weights_l)
+    gpu = compress_index(merged, tile_size=512)         # device="cuda"
+    cpu = compress_index(merged, tile_size=512, device="cpu")
+    for traversal, kernel in (("chunked_fused", gs.guided_score_chunk_q),
+                              ("chunked", gs.guided_score_tile_q)):
+        gs.reset_launches()
+        on_card = Retriever.open(gpu, twolevel.fast(), engine="kernel",
+                                 traversal=traversal).search(**q, k=10)
+        assert kernel.launches > 0
+        assert gs.guided_score_chunk.launches == 0
+        assert gs.guided_score_tile.launches == 0
+        on_cpu = Retriever.open(cpu, twolevel.fast(), engine="kernel",
+                                traversal=traversal,
+                                device="cpu").search(**q, k=10)
+        np.testing.assert_array_equal(on_card.ids, on_cpu.ids)
+        np.testing.assert_allclose(on_card.scores, on_cpu.scores,
+                                   rtol=1e-6)
+        for key in ("tiles_visited", "docs_present", "postings_touched",
+                    "docs_survived", "chunks_dispatched"):
             np.testing.assert_array_equal(on_card.stats[key],
                                           on_cpu.stats[key])

@@ -110,7 +110,8 @@ def test_registry_and_engine_options(setup):
     with pytest.raises(ValueError, match="traversal"):
         Retriever.open(tidx, engine="batched", traversal="chunked_fused",
                        device="cpu")
-    with pytest.raises(TypeError, match="BlockedImpactIndex"):
+    with pytest.raises(TypeError, match="BlockedImpactIndex or "
+                       "CompressedImpactIndex"):
         Retriever.open(object(), device="cpu")
     r = Retriever.open(tidx, twolevel.fast(), engine="kernel",
                        traversal="chunked", chunk_tiles=2, device="cpu")
@@ -151,7 +152,8 @@ def test_open_on_cuda_without_gpu_raises(setup):
 
 def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     """repro_torch runs with ``jax`` and ``repro`` unimportable: a finder
-    that refuses both is installed before anything is imported."""
+    that refuses both is installed before anything is imported; it builds
+    and searches the fp32 and the compressed (q8) index."""
     script = textwrap.dedent("""
         import sys
 
@@ -165,18 +167,23 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
         import numpy as np
         from repro_torch.core import build_index, twolevel
         from repro_torch.data import make_corpus
+        from repro_torch.index import compress_index
         from repro_torch.retrieval import Retriever
 
         c = make_corpus("splade_like", n_docs=1024, n_terms=256,
                         n_queries=4, n_q_terms=4, avg_doc_terms=16, seed=3)
-        index = build_index(c.merged("scaled"), tile_size=256, device="cpu")
-        for engine, opts in (("kernel", {"traversal": "chunked_fused"}),
-                             ("kernel", {"traversal": "chunked"})):
-            r = Retriever.open(index, twolevel.fast(), engine=engine,
-                               device="cpu", **opts)
-            resp = r.search(terms=c.queries, weights_b=c.q_weights_b,
-                            weights_l=c.q_weights_l, k=10)
-            assert resp.ids.shape == (4, 10) and np.isfinite(resp.scores).all()
+        merged = c.merged("scaled")
+        for index in (build_index(merged, tile_size=256, device="cpu"),
+                      compress_index(merged, tile_size=256, device="cpu")):
+            for opts in ({"traversal": "chunked_fused"},
+                         {"traversal": "chunked"}):
+                r = Retriever.open(index, twolevel.fast(), engine="kernel",
+                                   device="cpu", **opts)
+                resp = r.search(terms=c.queries, weights_b=c.q_weights_b,
+                                weights_l=c.q_weights_l, k=10)
+                assert resp.ids.shape == (4, 10)
+                assert np.isfinite(resp.scores).all()
+        assert index.gather_kind == "q8"
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not leaked, leaked
