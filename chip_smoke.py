@@ -27,13 +27,30 @@ Phases, one JSON line each:
             k=100, q8 at k=10
   rank_safe per index, a rank-safe chunked_fused run against an exhaustive
             top-k computed on the card (q8: over the dequantized postings)
+  lm        granite-3-2b at full width (fp32 master, bf16 compute):
+            prefill of 4 x 4096 prompts into a 4128-position cache and 32
+            greedy decode steps through flash_attention, with launch counts,
+            bytes, a profile of each, and the last 8 steps against a
+            cache-free forward
+  recsys    dlrm-rm2, two-tower-retrieval and bert4rec at full width:
+            serve_p99 (batch 512) and retrieval_cand (1,000,448 candidates,
+            top-100) through embedding_bag / flash_attention, each against
+            the same step on the CPU
+  kernels_models  flash_attention and embedding_bag against their plain
+            versions on the main path's inputs (captured from the lm and
+            recsys runs, where a zeroed output and one without each row's
+            last key tile are shown to fail the tolerance) and odd shapes;
+            times beside the bound, the plain version and one PyTorch
+            library call
 
-Then the kernels' summary line, the nvidia-smi line and, last, the one-line
-verdict. Any failed check raises and the script exits non-zero.
+Then the six kernels' summary line, the nvidia-smi line and, last, the
+one-line verdict. Any failed check raises and the script exits non-zero.
+Float32 matrix products run in full float32 (TF32 off).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -91,31 +108,58 @@ def event_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 25) -> float | None:
-    """Mean device time of one ``fn()`` call: the summed durations of the
-    kernels (and copies) it ran on the card, from a profiler trace. None
-    when the profiler records no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def spin_cycles_per_ms() -> float:
+    """Clock cycles the card's spin kernel (``torch.cuda._sleep``) takes
+    per millisecond, measured once between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    stop.record()
+    stop.synchronize()
+    return 10 ** 7 / start.elapsed_time(stop)
+
+
+def device_ms(fn, cycles_per_ms: float, runs: int = 25) -> dict:
+    """Mean time of one ``fn()`` call on the card: CUDA events around
+    ``runs`` calls queued behind a spin kernel that lasts longer than the
+    host takes to queue them, so the card runs them back to back and the
+    host's launch overhead is hidden (the gaps between kernels are
+    counted). ``host_bound`` says the host's queueing outlasted the spin
+    (then the time includes host gaps)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / runs / 1e3 if total_us > 0 else None
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = 2 * queue_ms + 1.0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(cycles_per_ms * spin_ms))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(runs):
+        fn()
+    stop.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    stop.synchronize()
+    return {"ms": start.elapsed_time(stop) / runs,
+            "host_bound": queued_ms > spin_ms}
+
+
+@functools.lru_cache(maxsize=None)
+def _cycles_per_ms() -> float:
+    return spin_cycles_per_ms()
 
 
 def timings(fn) -> dict:
-    """``ms``: device time per call (profiler), or the event time when the
-    profiler sees no device activity; ``event_ms`` beside it."""
-    ev = event_ms(fn)
-    dev = device_ms(fn)
-    return {"ms": ev if dev is None else dev, "event_ms": ev,
-            "timing": "events" if dev is None else "profiler"}
+    """``ms``: device time per call, back to back (``device_ms``);
+    ``event_ms``: one call between events, the host's launch included."""
+    return {**device_ms(fn, _cycles_per_ms()), "event_ms": event_ms(fn),
+            "timing": "events, back to back behind a spin kernel"}
 
 
 def require(cond: bool, what: str) -> None:
@@ -463,20 +507,27 @@ def summarize(resps):
 
 
 def profile_search(retriever, corpus, k) -> dict:
-    """One batch of ``retriever.search`` under the profiler: wall time, the
-    device's busy time (kernels and copies, one stream, so they do not
-    overlap), its idle share, launches, host syncs and the kernels that
-    take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One batch of ``retriever.search`` under the profiler (``profile_call``)."""
     q = dict(terms=corpus.queries[:BATCH], weights_b=corpus.q_weights_b[
         :BATCH], weights_l=corpus.q_weights_l[:BATCH])
-    retriever.search(**q, k=k)
+    return {"k": k, **profile_call(lambda: retriever.search(**q, k=k))}
+
+
+def profile_call(fn, warm: bool = True) -> dict:
+    """One ``fn()`` under the profiler, ending in a synchronize: wall time,
+    the device's busy time (kernels and copies, one stream, so they do not
+    overlap), its idle share, launches, host syncs and the kernels that
+    take the most device time. ``warm``: run ``fn`` once before."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        retriever.search(**q, k=k)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -485,7 +536,7 @@ def profile_search(retriever, corpus, k) -> dict:
     host = {e.key: e.count for e in events
             if e.key in ("cudaLaunchKernel", "cudaStreamSynchronize",
                          "cudaMemcpyAsync", "cudaDeviceSynchronize")}
-    return {"k": k, "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_ops": sum(e.count for e in dev), "host_calls": host,
             "top_device": [{"name": e.key[:80], "count": e.count,
@@ -603,6 +654,600 @@ def phase_rank_safe(label, index, postings, corpus, dev):
          tolerance="rtol 2e-5, atol 1e-4")
 
 
+# --------------------------------------------------------------------------
+# models: the LM and recsys serve steps (flash_attention, embedding_bag)
+# --------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense, tensor cores
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "granite-3-2b", 4, 4096, 32
+LM_MAX_LEN = LM_PROMPT + LM_DECODE
+RECSYS_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "bert4rec")
+RECSYS_CHECK_ROWS, RECSYS_CHECK_CANDS = 8, 65536
+# K6 against its plain version, per element: float32 within 2e-4 +
+# 2e-4 |plain| (another summation order, division at the end, the fast
+# exponential); bfloat16 within 1e-2 |plain| (each side rounds a float32
+# value once: at most 2^-7 |x| apart) + 1e-4 (p @ |v|), the float32 error
+# before that rounding, scaled by the row's weighted mean of |v|. The
+# outputs of a long average are small, so a fixed floor would pass a
+# zeroed output; each main-path check also shows that a zeroed output and
+# one without the last key tile fail. K5: bit-equal.
+FA_F32_TOL, FA_BF16_RTOL, FA_BF16_MAG = 2e-4, 1e-2, 1e-4
+FA_TILE_KEYS = 64               # keys per tile (kBK of flash_attention.cu)
+# The decode path against a cache-free forward, and bfloat16 models on
+# the card against the CPU: max |d| <= 2% of max |reference| (bfloat16
+# keeps about 3 significant digits, and the two paths round their matrix
+# products at other places, through every layer; runs of this script
+# measured 1.0% and 0.6%).
+BF16_MODEL_RTOL = 0.02
+
+
+def model_kernels():
+    """The model path's kernel modules, by kernel name."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa, "embedding_bag": eb}
+
+
+def reset_model_launches() -> None:
+    for mod in model_kernels().values():
+        mod.reset_launches()
+
+
+def model_launches() -> dict:
+    return {name: mod.launches for name, mod in model_kernels().items()}
+
+
+@contextlib.contextmanager
+def first_call(module, name):
+    """Record the arguments of the first call of ``module.name`` (the
+    callers look the function up on the module at each call); the list
+    holds (args, kwargs) once it was called."""
+    real = getattr(module, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        if not seen:
+            seen.append((args, kwargs))
+        return real(*args, **kwargs)
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if torch.is_tensor(tree) else 0
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def synced_ms(fn) -> tuple:
+    """(result, host ms) of ``fn()`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def fa_bound(q, k, causal, kv_offset) -> dict:
+    """K6: q and out, and the K/V rows some query sees, moved once; 4 D
+    operations per visible (query, key) pair, at the tensor-core rate of
+    bfloat16 (float32: the CUDA-core rate)."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    elt = q.element_size()
+    pos = kv_offset + torch.arange(sq)
+    visible = (torch.clamp(pos + 1, max=skv) if causal
+               else torch.full((sq,), skv))
+    n_keys = int(visible.max()) if sq else 0
+    nbytes = elt * (2 * b * h * sq * d + 2 * b * hkv * n_keys * d)
+    ops = 4 * d * b * h * int(visible.sum())
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "shape": {
+                "q": list(q.shape), "k": list(k.shape), "causal": causal,
+                "kv_offset": kv_offset, "dtype": str(q.dtype)}}
+
+
+def eb_bound(table, idx) -> dict:
+    """K5: the distinct gathered rows, the indices and weights read once,
+    the output written once; 2 float operations per gathered element."""
+    tab = table if table.dim() == 3 else table[None]
+    ix = idx if idx.dim() == 3 else idx[:, None]
+    n_fields, vocab, d = tab.shape
+    elt = tab.element_size()
+    field = torch.arange(n_fields, device=ix.device)[None, :, None]
+    rows = int(torch.unique((field * vocab + ix.long()).flatten()).numel())
+    slots = ix.numel()
+    nbytes = rows * d * elt + slots * (4 + elt) + ix.shape[0] * n_fields * d * elt
+    ops = 2 * slots * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "distinct_rows": rows,
+            "shape": {"table": list(tab.shape), "idx": list(ix.shape),
+                      "dtype": str(tab.dtype)}}
+
+
+def by_sequence(fn, q, k, v, split: bool):
+    """``fn(q, k, v)``, one sequence at a time where ``split`` (the plain
+    version's float32 scores of all sequences would not fit beside the
+    model)."""
+    if not split:
+        return fn(q, k, v)
+    return torch.cat([fn(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                      for i in range(q.shape[0])])
+
+
+def fa_tolerance(q, k, v, ref, kwargs, split: bool = False):
+    """K6's per-element bound against its plain output ``ref`` (FA_*)."""
+    from repro_torch.kernels import flash_attention as fa
+    if ref.dtype == torch.float32:
+        return FA_F32_TOL + FA_F32_TOL * ref.abs()
+    mag = by_sequence(functools.partial(fa.flash_attention_plain, **kwargs),
+                      q, k, v.abs(), split).float()
+    return FA_BF16_RTOL * ref.float().abs() + FA_BF16_MAG * mag
+
+
+def outside_share(out, ref, tol) -> float:
+    """The share of elements of ``out`` beyond ``tol`` of ``ref``."""
+    return float(((out.float() - ref.float()).abs() > tol).float().mean())
+
+
+def fa_close(name, out, ref, tol) -> float:
+    """K6 against its plain version within ``tol``; returns max |d|."""
+    require(out.shape == ref.shape and out.dtype == ref.dtype,
+            f"{name}: {tuple(out.shape)} {out.dtype} vs {tuple(ref.shape)} "
+            f"{ref.dtype}")
+    require(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    require(bool((diff <= tol).all()),
+            f"{name}: max|d| {diff.max().item()}, "
+            f"{outside_share(out, ref, tol)} of it beyond tolerance")
+    return diff.max().item()
+
+
+def attention_kept(q, k, v, keep, sm_scale=None):
+    """Plain attention of q [B, H, Sq, D] over the keys ``keep`` [Sq, Skv]
+    marks (GQA as K6), float32 inside, cast to q's dtype."""
+    group = q.shape[1] // k.shape[1]
+    scale = sm_scale or q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(group, 1)) * scale
+    p = torch.softmax(s.masked_fill(~keep, -math.inf), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float().repeat_interleave(
+        group, 1)).to(q.dtype)
+
+
+def without_last_tile(sq, skv, causal, kv_offset, device):
+    """[Sq, Skv]: the keys each row sees, less the FA_TILE_KEYS tile that
+    holds its last one (a row of one tile keeps it): what a kernel that
+    skipped its last tile would read."""
+    pos = kv_offset + torch.arange(sq, device=device)
+    last = (torch.clamp(pos, max=skv - 1) if causal
+            else torch.full_like(pos, skv - 1))
+    start = last // FA_TILE_KEYS * FA_TILE_KEYS
+    cut = torch.where(start > 0, start, last + 1)
+    return torch.arange(skv, device=device)[None, :] < cut[:, None]
+
+
+def sdpa_call(q, k, v, causal, kv_offset):
+    """One ``scaled_dot_product_attention`` call computing K6's function
+    (the yardstick; the port never calls it), or None where this PyTorch
+    has no ``enable_gqa``."""
+    import torch.nn.functional as F
+    if "enable_gqa" not in (F.scaled_dot_product_attention.__doc__ or ""):
+        return None
+    kw = {"enable_gqa": k.shape[1] != q.shape[1]}
+    if causal and kv_offset == 0 and q.shape[2] <= k.shape[2]:
+        kw["is_causal"] = True          # top-left aligned: row i sees 0..i
+    elif causal:
+        pos = kv_offset + torch.arange(q.shape[2], device=q.device)
+        kw["attn_mask"] = pos[:, None] >= torch.arange(k.shape[2],
+                                                       device=q.device)
+    return functools.partial(F.scaled_dot_product_attention, q, k, v, **kw)
+
+
+def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
+    """K6 on main-path inputs: checked against its plain version (one
+    sequence at a time where the plain version's float32 scores of all
+    sequences would not fit beside the model), timed beside its bound,
+    the plain version and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = args
+    causal, off = kwargs.get("causal", True), kwargs.get("kv_offset", 0)
+    split = per_sequence_plain
+    kern = functools.partial(fa.flash_attention, q, k, v, **kwargs)
+    plain = functools.partial(by_sequence, functools.partial(
+        fa.flash_attention_plain, **kwargs), q, k, v, split)
+    ref = plain()
+    tol = fa_tolerance(q, k, v, ref, kwargs, split)
+    err = fa_close("flash_attention main", kern(), ref, tol)
+    # the bound rejects a zeroed output and one without each row's last
+    # key tile, on these inputs
+    keep = without_last_tile(q.shape[2], k.shape[2], causal, off, q.device)
+    rejected = {}
+    for name, wrong in (("zeroed", lambda: torch.zeros_like(ref)),
+                        ("without_last_key_tile", lambda: by_sequence(
+                            functools.partial(attention_kept, keep=keep,
+                                              sm_scale=kwargs.get(
+                                                  "sm_scale")),
+                            q, k, v, split))):
+        rejected[name] = outside_share(wrong(), ref, tol)
+        require(rejected[name] > 0, f"flash_attention main: a {name} "
+                                    f"output passes the tolerance")
+    del ref, tol, keep
+    lib = sdpa_call(q, k, v, causal, off)
+    t_k, t_p = timings(kern), timings(plain)
+    return {"max_abs_err": err, "wrong_outputs_rejected": rejected, **t_k,
+            "plain_ms": t_p["ms"], "plain_event_ms": t_p["event_ms"],
+            "library_ms": None if lib is None else timings(lib)["ms"],
+            "library": "scaled_dot_product_attention(enable_gqa)",
+            **fa_bound(q, k, causal, off)}
+
+
+def measure_eb(args) -> dict:
+    """K5 on main-path inputs: bit-equal to its plain version, timed beside
+    its bound, the plain version and one F.embedding_bag call over the
+    flattened tables."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+    table, idx, w = args
+    out = eb.embedding_bag(table, idx, w)
+    require(torch.equal(out, eb.embedding_bag_plain(table, idx, w)),
+            "embedding_bag main: differs from its plain version")
+    tab = table if table.dim() == 3 else table[None]
+    ix = idx if idx.dim() == 3 else idx[:, None]
+    off = (torch.arange(tab.shape[0], device=ix.device) * tab.shape[1])
+    flat_idx = (ix.long() + off[None, :, None]).reshape(-1, ix.shape[-1])
+    flat_w = w.reshape(-1, ix.shape[-1])
+    flat_tab = tab.reshape(-1, tab.shape[-1])
+    t_k = timings(functools.partial(eb.embedding_bag, table, idx, w))
+    t_p = timings(functools.partial(eb.embedding_bag_plain, table, idx, w))
+    t_l = timings(lambda: F.embedding_bag(flat_idx, flat_tab, mode="sum",
+                                          per_sample_weights=flat_w))
+    return {"max_abs_err": 0.0, **t_k, "plain_ms": t_p["ms"],
+            "plain_event_ms": t_p["event_ms"], "library_ms": t_l["ms"],
+            "library": "F.embedding_bag(mode=sum, per_sample_weights)",
+            **eb_bound(table, idx)}
+
+
+def phase_lm(seed: int, dev) -> dict:
+    """granite-3-2b at full width: prefill 4 x 4096 prompts into a 4128
+    cache, 32 greedy decode steps, the last 8 against a cache-free forward,
+    K6 checked and timed on the layer-0 inputs of both, a profile of each.
+    Returns the launch counts and K6's main-path measurements."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    arch = get_arch(LM_ARCH)
+    cfg = arch.config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    master = steps.init_fn(arch, "prefill_32k", cfg, device=dev)(seed)
+    params = T.compute_params(cfg, master)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
+    prefill = steps.make_serve_step(arch, "prefill_32k", cfg,
+                                    max_len=LM_MAX_LEN)
+    decode = steps.make_serve_step(arch, "decode_32k", cfg)
+
+    with first_call(fa, "flash_attention") as seen:      # warm-up run
+        logits, cache = prefill(params, tokens)
+    pre_args = seen[0]
+    del logits, cache
+    reset_model_launches()
+    (logits, cache), prefill_ms = synced_ms(lambda: prefill(params, tokens))
+    launches = {"prefill": model_launches()}
+    require(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
+    cache_bytes = tree_bytes(cache)
+
+    gen = [logits[:, -1].argmax(-1)[:, None]]
+    dec_logits = []
+    dec_args = None
+    reset_model_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        if i == 1:
+            with first_call(fa, "flash_attention") as seen:
+                lg, cache = decode(params, gen[-1], cache, LM_PROMPT + i)
+            dec_args = seen[0]
+        else:
+            lg, cache = decode(params, gen[-1], cache, LM_PROMPT + i)
+        dec_logits.append(lg[:, 0])
+        gen.append(lg[:, -1].argmax(-1)[:, None])
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
+    launches["decode"] = model_launches()
+    dec = torch.stack(dec_logits, 1)                 # [B, 32, V]
+    require(bool(torch.isfinite(dec).all()), "decode: non-finite logits")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the last 8 decode steps against a cache-free forward over the prompt
+    # and the generated tokens (position LM_PROMPT + i holds gen[i])
+    seq = torch.cat([tokens] + [g.to(tokens.dtype) for g in gen[:-1]], 1)
+    hidden, _, _ = T.forward(cfg, params, seq)
+    ref = T.logits_fn(cfg, params, hidden[:, LM_PROMPT + LM_DECODE - 8:])
+    got = dec[:, LM_DECODE - 8:]
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    top2 = ref[..., :cfg.vocab].topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).min().item()
+    require(diff <= BF16_MODEL_RTOL * scale,
+            f"decode vs cache-free forward: max|d| {diff} > "
+            f"{BF16_MODEL_RTOL} * {scale}")
+    require(agree == 1.0, f"decode vs cache-free forward: argmax agrees "
+                          f"at {agree} of the positions")
+    del hidden, ref
+
+    prof = {"prefill": profile_call(lambda: prefill(params, tokens),
+                                    warm=False),
+            "decode_step": profile_call(lambda: decode(
+                params, gen[-1], cache, LM_MAX_LEN - 1), warm=False)}
+    main = {"prefill": measure_fa(*pre_args, per_sequence_plain=True),
+            "decode": measure_fa(*dec_args, per_sequence_plain=False)}
+    emit("lm", arch=LM_ARCH, source=arch.source,
+         config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                 "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                 "compute_dtype": str(cfg.compute_dtype),
+                 "param_dtype": str(cfg.param_dtype)},
+         params=cfg.param_count(), init_seconds=init_s,
+         device_bytes={"params_master": tree_bytes(master),
+                       "params_compute": tree_bytes(params),
+                       "kv_cache": cache_bytes, "peak": peak},
+         prefill={"batch": LM_BATCH, "prompt": LM_PROMPT,
+                  "max_len": LM_MAX_LEN, "ms": prefill_ms,
+                  "tokens_per_s": LM_BATCH * LM_PROMPT / prefill_ms * 1e3},
+         decode={"steps": LM_DECODE, "ms_per_step": decode_ms,
+                 "tokens_per_s": LM_BATCH / decode_ms * 1e3},
+         launches=launches,
+         flash_attention_per_forward=launches["prefill"]["flash_attention"],
+         check={"decode_vs_cache_free_forward": {
+             "steps": 8, "max_abs_diff": diff, "max_abs_logit": scale,
+             "argmax_agreement": agree, "min_top2_margin": margin,
+             "tolerance": f"max|d| <= {BF16_MODEL_RTOL} * max|ref|, "
+                          f"argmax identical"}},
+         profile=prof,
+         kernel_check={k: {f: v[f] for f in ("max_abs_err",
+                                             "wrong_outputs_rejected",
+                                             "shape")}
+                       for k, v in main.items()},
+         reduced=["prefill_32k: batch 32 x 32768 -> 4 x 4096 (time limit)",
+                  "decode_32k: batch 128 x 32768 cache -> 4 x 4128 (one "
+                  "card's memory)", "long_500k not run"])
+    del master, params, cache, pre_args, dec_args
+    return {"launches": launches, "main": main}
+
+
+def cell_inputs(arch, shape, cfg, seed, dev) -> dict:
+    """A recsys cell's inputs at its full size (RECSYS_SHAPE_DEFS): ids
+    drawn by numpy from ``seed``, float arrays by a generator on the
+    card."""
+    from repro_torch.configs import RECSYS_SHAPE_DEFS
+    from repro_torch.models import recsys as R
+    d = RECSYS_SHAPE_DEFS[shape]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ids(hi, size, lo=0):
+        return torch.from_numpy(rng.integers(lo, hi, size).astype(
+            np.int32)).to(dev)
+    b = d["batch"]
+    n = d["n_cand"] if d["kind"] == "retrieval" else d["shortlist"]
+    if isinstance(cfg, R.DLRMConfig):
+        dense = torch.randn(b, cfg.n_dense, generator=gen, device=dev)
+        if d["kind"] == "serve":
+            return {"batch": {"dense": dense, "sparse": ids(
+                cfg.vocab_per_field, (b, cfg.n_sparse, cfg.multi_hot))}}
+        return {"user": {"dense": dense, "sparse": ids(
+            cfg.vocab_per_field, (1, cfg.n_sparse - 1, cfg.multi_hot))},
+            "cand_ids": ids(cfg.vocab_per_field, n)}
+    if isinstance(cfg, R.TwoTowerConfig):
+        uf = ids(cfg.n_user_feats, (b, cfg.user_bag), lo=1)
+        if d["kind"] == "serve":
+            return {"user_feats": uf, "shortlist": ids(cfg.n_items, n)}
+        return {"user_feats": uf, "cand_emb": torch.randn(
+            n, cfg.tower_mlp[-1], generator=gen, device=dev)}
+    if isinstance(cfg, R.Bert4RecConfig):
+        return {"items": ids(cfg.n_items, (b, cfg.seq_len)),
+                "cand_ids": ids(cfg.n_items, n)}
+    raise TypeError(type(cfg))
+
+
+def check_subset(arch, shape, inputs):
+    """The part of a cell's inputs the CPU check runs on: the first
+    RECSYS_CHECK_ROWS requests of a serve cell, the first
+    RECSYS_CHECK_CANDS candidates of a retrieval cell."""
+    def rows(x):
+        return {k: rows(v) for k, v in x.items()} if isinstance(x, dict) \
+            else x[:RECSYS_CHECK_ROWS]
+    if shape == "serve_p99":
+        if "batch" in inputs:
+            return {"batch": rows(inputs["batch"])}
+        first = next(iter(inputs))
+        return {**inputs, first: rows(inputs[first])}
+    last = list(inputs)[-1]
+    return {**inputs, last: inputs[last][:RECSYS_CHECK_CANDS]}
+
+
+def first_tensor(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def phase_recsys(seed: int, dev) -> dict:
+    """dlrm-rm2, two-tower-retrieval and bert4rec at full width: serve_p99
+    and retrieval_cand on the card (launch counts, ms per step), each
+    checked against the same step on the CPU; K5 (dlrm, two-tower) and K6
+    (bert4rec) checked and timed on their serve_p99 inputs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+
+    launches, main, results = {}, {}, {}
+    for arch_id in RECSYS_ARCHS:
+        arch = get_arch(arch_id)
+        cfg = arch.config()
+        torch.cuda.reset_peak_memory_stats()
+        params = steps.init_fn(arch, "serve_p99", cfg, device=dev)(seed)
+        host = None
+        row = {"source": arch.source, "params": cfg.param_count(),
+               "param_bytes": tree_bytes(params),
+               "compute_dtype": str(cfg.compute_dtype)}
+        for shape in ("serve_p99", "retrieval_cand"):
+            step = steps.make_serve_step(arch, shape, cfg)
+            inputs = cell_inputs(arch, shape, cfg, seed, dev)
+            kern_mod = fa if arch_id == "bert4rec" else eb
+            kname = kern_mod.__name__.rsplit(".", 1)[1]
+            with first_call(kern_mod, kname) as seen:      # warm-up run
+                step(params, *inputs.values())
+            reset_model_launches()
+            runs = 5
+            out, ms = synced_ms(lambda: [step(params, *inputs.values())
+                                         for _ in range(runs)][-1])
+            counts = model_launches()
+            launches[f"{arch_id}/{shape}"] = counts
+            require(counts[kname] > 0, f"{arch_id} {shape}: {kname} never "
+                                       f"launched")
+            res = first_tensor(out)
+            require(bool(torch.isfinite(res).all()),
+                    f"{arch_id} {shape}: non-finite output")
+            if shape == "serve_p99" and kname == "embedding_bag":
+                main[arch_id] = measure_eb(seen[0][0])
+            elif shape == "serve_p99":
+                main[arch_id] = measure_fa(*seen[0], per_sequence_plain=False)
+            # the same step on the CPU, on the check subset
+            if host is None:
+                host = tree_to(params, "cpu")
+            sub = check_subset(arch, shape, inputs)
+            cpu = step(host, *tree_to(sub, "cpu").values())
+            card = (out if shape == "serve_p99"
+                    else step(params, *sub.values()))
+            card_t = tree_to(card, "cpu")
+            if shape == "serve_p99":
+                got, ref = first_tensor(card_t)[:RECSYS_CHECK_ROWS], cpu
+            else:
+                got, ref = card_t[0], cpu[0]
+            diff = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            check = {"on": (f"first {RECSYS_CHECK_ROWS} rows"
+                            if shape == "serve_p99" else
+                            f"first {RECSYS_CHECK_CANDS} candidates"),
+                     "max_abs_diff": diff, "max_abs_ref": scale}
+            if cfg.compute_dtype == torch.float32:
+                tol = 1e-4 * scale + 1e-5
+                check["tolerance"] = "max|d| <= 1e-4 max|ref| + 1e-5"
+            else:
+                tol = BF16_MODEL_RTOL * scale
+                check["tolerance"] = f"max|d| <= {BF16_MODEL_RTOL} max|ref|"
+            require(diff <= tol, f"{arch_id} {shape}: card vs CPU max|d| "
+                                 f"{diff} > {tol}")
+            if shape == "retrieval_cand":
+                ids_card, ids_cpu = card_t[1], cpu[1]
+                overlap = len(set(ids_card.tolist())
+                              & set(ids_cpu.tolist())) / ids_cpu.numel()
+                check["top100_overlap"] = overlap
+                check["top100_ids_identical"] = bool(
+                    torch.equal(ids_card, ids_cpu))
+                if cfg.compute_dtype == torch.float32:
+                    require(check["top100_ids_identical"],
+                            f"{arch_id}: top-100 ids differ from the CPU's")
+            row[shape] = {"ms_per_step": ms / runs, "runs": runs,
+                          "launches_per_step": {k: v / runs
+                                                for k, v in counts.items()},
+                          "out_shape": list(res.shape), "check": check}
+            del out, card, card_t, inputs, cpu
+        row["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        results[arch_id] = row
+        del params, host
+        torch.cuda.empty_cache()
+    emit("recsys", models=results, launches=launches,
+         kernel_check={k: {f: v[f] for f in ("max_abs_err",
+                                             "wrong_outputs_rejected",
+                                             "shape") if f in v}
+                       for k, v in main.items()},
+         reduced=["serve_bulk (batch 262144) not run",
+                  "din not run (it runs neither kernel; CPU tests only)",
+                  "CPU checks on the first 8 rows / 65536 candidates"])
+    return {"launches": launches, "main": main}
+
+
+def phase_model_kernels(dev) -> list:
+    """K5 and K6 against their plain versions on odd shapes."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(4321)
+    sweep = []
+    bf, f32 = torch.bfloat16, torch.float32
+    for (b, h, hkv, sq, skv, d, causal, off, dt) in [
+            (2, 8, 2, 100, 100, 64, True, 0, bf),     # ragged, group 4
+            (2, 32, 8, 1, 4128, 128, True, 4100, bf),  # decode, group 4
+            (3, 4, 4, 1, 77, 32, True, 76, f32),      # Sq = 1, group 1
+            (2, 8, 1, 33, 200, 64, True, 150, f32),   # group 8, offset
+            (2, 2, 2, 200, 200, 32, False, 0, bf),    # bidirectional
+            (1, 16, 4, 130, 130, 128, False, 0, f32),
+            (1, 4, 4, 5, 3, 64, True, 10, bf),        # past a short cache
+            (1, 4, 2, 65, 64, 64, True, 0, f32),      # Sq > Skv
+            (1, 8, 8, 64, 64, 128, True, 0, bf)]:
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
+                   for s in ((b, h, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+        kw = dict(causal=causal, kv_offset=off)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        sweep.append({"kernel": "flash_attention",
+                      "shape": [b, h, hkv, sq, skv, d], "causal": causal,
+                      "kv_offset": off, "dtype": str(dt),
+                      "max_abs_err": fa_close(
+                          f"flash_attention {b}x{h}/{hkv}x{sq}x{skv}x{d}",
+                          fa.flash_attention(q, k, v, **kw), ref,
+                          fa_tolerance(q, k, v, ref, kw))})
+    for (f, vocab, d, b, l, dt) in [
+            (1, 1000, 64, 37, 1, f32), (1, 500, 256, 300, 16, f32),
+            (26, 1000, 64, 100, 1, f32), (1, 5000, 64, 513, 16, bf),
+            (3, 200, 256, 10, 4, bf)]:
+        table = torch.randn(f, vocab, d, generator=g, device=dev).to(dt)
+        idx = torch.randint(0, vocab, (b, f, l), generator=g, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand(b, f, l, generator=g, device=dev).to(dt)
+        if l > 1:
+            w[:, :, l // 2:] = 0                        # weight-0 padding
+        idx[0, 0, 0] = vocab                            # out of range
+        if f == 1:
+            table, idx, w = table[0], idx[:, 0].contiguous(), \
+                w[:, 0].contiguous()
+        out = eb.embedding_bag(table, idx, w)
+        require(torch.equal(out, eb.embedding_bag_plain(table, idx, w)),
+                f"embedding_bag {f}x{vocab}x{d} B={b} L={l}: differs")
+        sweep.append({"kernel": "embedding_bag",
+                      "shape": [f, vocab, d, b, l], "dtype": str(dt),
+                      "max_abs_err": 0.0})
+    torch.cuda.synchronize()
+    return sweep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -613,6 +1258,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full
+    torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
     dev = torch.device("cuda")
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
@@ -627,9 +1274,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log = build.build_all()
-    emit("build", seconds=time.perf_counter() - t0, flags=build.NVCC_FLAGS,
-         sources={s: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
-                  for s, v in log.items()})
+    emit("build", seconds=time.perf_counter() - t0,
+         sources={s: {"seconds": v["seconds"], "flags": build.flags(s),
+                      "ptxas": v["ptxas"]} for s, v in log.items()})
 
     reduced = ["q8 paths profiled at k=10 only"]
     if args.n_docs != 2 ** 20:
@@ -684,6 +1331,27 @@ def main() -> int:
                     corpus, dev)
     phase_rank_safe("q8", q8, dequantized_postings(q8, index.docids), corpus,
                     dev)
+    del index, q8, indexes, served
+    torch.cuda.empty_cache()
+
+    lm = phase_lm(args.seed, dev)
+    torch.cuda.empty_cache()
+    rec = phase_recsys(args.seed, dev)
+    sweep = phase_model_kernels(dev)
+    model_main = {"flash_attention": lm["main"]["prefill"],
+                  "embedding_bag": rec["main"]["dlrm-rm2"]}
+    model_other = {"flash_attention": {"decode": lm["main"]["decode"],
+                                       "bert4rec": rec["main"]["bert4rec"]},
+                   "embedding_bag": {"two-tower-retrieval":
+                                     rec["main"]["two-tower-retrieval"]}}
+    emit("kernels_models", main=model_main, other=model_other, sweep=sweep,
+         tolerance="embedding_bag bit-equal; flash_attention float32 within "
+                   "2e-4 + 2e-4|plain|, bfloat16 within 1e-2|plain| + "
+                   "1e-4 (p @ |v|)")
+    model_counts = {name: 0 for name in model_kernels()}
+    for counts in (*lm["launches"].values(), *rec["launches"].values()):
+        for name, n in counts.items():
+            model_counts[name] += n
 
     src = "src/repro_torch/kernels/csrc/"
     where = {"guided_score_chunk": ("guided_score.cu", 123),
@@ -699,6 +1367,24 @@ def main() -> int:
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": None}
         for name, (cu, line) in where.items()]}
+    for name, cu, line in (("flash_attention", "flash_attention.cu", 29),
+                           ("embedding_bag", "embedding_bag.cu", 25)):
+        m = model_main[name]
+        summary["kernels"].append({
+            "name": name, "route": "cuda", "source": src + cu,
+            "replaces": f"src/repro/kernels/{name}.py:{line}",
+            "launches": model_counts[name], "max_abs_err": max(
+                [m["max_abs_err"]] + [o["max_abs_err"] for o in
+                                      model_other[name].values()]
+                + [r["max_abs_err"] for r in sweep if r["kernel"] == name]),
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "at": m["shape"],
+            "other": {k: {f: o[f] for f in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "shape")}
+                      for k, o in model_other[name].items()}})
+        require(model_counts[name] > 0, f"{name} never launched on its path")
     print(json.dumps(summary), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,29 @@
-"""Carry an index built by the JAX package over to the port.
+"""Carry state built by the JAX package over to the port.
 
-This system has no weights: its state is the index. ``index_from_arrays``
-takes the fields of the reference's ``BlockedImpactIndex`` as numpy arrays
-(and ints) and returns the port's index on ``device``, so both packages
-search the same arrays; ``compressed_from_arrays`` does the same for the
-reference's ``CompressedImpactIndex``. The port never imports the reference; callers
+The retrieval core's state is the index. ``index_from_arrays`` takes the
+fields of the reference's ``BlockedImpactIndex`` as numpy arrays (and ints)
+and returns the port's index on ``device``, so both packages search the
+same arrays; ``compressed_from_arrays`` does the same for the reference's
+``CompressedImpactIndex``. The port never imports the reference; callers
 convert, e.g. ``{f.name: np.asarray(getattr(idx, f.name)) for f in
 dataclasses.fields(idx)}``.
+
+The models' state is their parameters. ``transformer_params_from_arrays``
+and ``recsys_params_from_arrays`` take the reference's parameter tree with
+numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and return
+the port's: the port keeps the reference's layout (layers stacked
+``[L, ...]``, weights applied as ``x @ W``, MLP layers as lists of
+``{"w", "b"}``), so every tensor is an exact copy.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from .core.index import TENSOR_FIELDS, BlockedImpactIndex, index_from_layout
+from .core.index import (TENSOR_FIELDS, BlockedImpactIndex, index_from_layout,
+                         resolve_device)
 from .index.compressed import index_from_fields
+from .models import transformer as T
 
 SCALAR_FIELDS = ("n_docs", "n_terms", "tile_size", "n_tiles", "pad_len")
 
@@ -38,3 +48,48 @@ def index_from_arrays(fields: dict[str, np.ndarray],
 # ``packed`` becomes a bitcast int32, ``first`` int32, the rest keeps its
 # dtype; ``orig_of_new`` (optional) stays a host array.
 compressed_from_arrays = index_from_fields
+
+
+def _tree_to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def transformer_params_from_arrays(cfg: T.TransformerConfig, tree: dict,
+                                   device="cuda") -> dict:
+    """The port's transformer parameters on ``device`` from the reference's
+    tree of numpy arrays; raises unless its shapes are ``cfg``'s."""
+    params = _tree_to_torch(tree, resolve_device(device))
+    want = {k: (v if isinstance(v, dict) else tuple(v))
+            for k, v in T.param_shapes(cfg).items()}
+    if _shapes(params) != want:
+        raise ValueError(f"parameter shapes {_shapes(params)} are not those "
+                         f"of the config: {want}")
+    return params
+
+
+def recsys_params_from_arrays(cfg, tree: dict, device="cuda") -> dict:
+    """The port's parameters of a recsys model (DLRM, DIN, two-tower or
+    BERT4Rec config ``cfg``) on ``device`` from the reference's tree of
+    numpy arrays; raises unless they hold ``cfg.param_count()`` values."""
+    params = _tree_to_torch(tree, resolve_device(device))
+
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(count(v) for v in t)
+        return t.numel()
+    if count(params) != cfg.param_count():
+        raise ValueError(f"{count(params)} parameters, the config has "
+                         f"{cfg.param_count()}")
+    return params

@@ -1,0 +1,3 @@
+from .base import ArchSpec  # noqa: F401
+from .registry import ARCH_IDS, all_cells, get_arch  # noqa: F401
+from .shapes import LM_SHAPE_DEFS, RECSYS_SHAPE_DEFS  # noqa: F401

@@ -5,7 +5,10 @@ into a shared library with a plain C interface and loaded with ``ctypes``.
 The build happens at first use, into ``build/repro_torch/`` at the root of
 the checkout (listed in ``.gitignore``); the library's file name carries a
 hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time.
+library is never loaded. Each source carries its own extra flags
+(``SOURCE_FLAGS``): the kernels held bit-equal to their plain versions are
+built with ``-fmad=false``, so that no multiply-add is contracted. Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -18,12 +21,20 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("guided_score.cu", "guided_score_q.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# source -> flags added to NVCC_FLAGS for it
+SOURCE_FLAGS = {
+    "guided_score.cu": ("-fmad=false",),
+    "guided_score_q.cu": ("-fmad=false",),
+    "embedding_bag.cu": ("-fmad=false",),
+    "flash_attention.cu": (),
+}
+SOURCES = tuple(SOURCE_FLAGS)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +47,7 @@ _GUIDED_ARGS = [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _P,
 # prefix_beta, skip, th_lo, alpha, beta, gamma, out, B, C, Nq, Wp, P,
 # tile_size, block_s, stream
 _GUIDED_Q_ARGS = [_P] * 11 + [_F, _F, _F, _P] + [_I] * 7 + [_P]
+_L = ctypes.c_longlong
 SIGNATURES = {
     "guided_score.cu": {
         "guided_score_tile_launch": _GUIDED_ARGS,
@@ -45,6 +57,16 @@ SIGNATURES = {
     "guided_score_q.cu": {
         "guided_score_tile_q_launch": _GUIDED_Q_ARGS,
         "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
+    },
+    # table, idx, w, out, dtype, n_bags, n_fields, bag_len, vocab, d, stream
+    "embedding_bag.cu": {
+        "embedding_bag_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P],
+    },
+    # q, k, v, o, dtype, batch, h, hkv, sq, skv, d, 12 strides (q, k, v, o:
+    # batch, head, position), causal, kv_offset, sm_scale, stream
+    "flash_attention.cu": {
+        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_L] * 12
+                                  + [_I, _I, _F, _P],
     },
 }
 _RESTYPES = {"error_string": ctypes.c_char_p}
@@ -65,9 +87,15 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+def flags(source: str) -> tuple[str, ...]:
+    """The nvcc flags ``source`` is built with."""
+    return NVCC_FLAGS + SOURCE_FLAGS[source]
+
+
 def _lib_path(source: str) -> Path:
     text = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(text + " ".join(flags(source)).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"{Path(source).stem}_{digest[:16]}.so"
 
 
@@ -78,7 +106,7 @@ def _compile(source: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [nvcc_path(), *flags(source), "-o", str(tmp), str(CSRC / source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -116,3 +144,19 @@ def load(source: str = "guided_score.cu") -> ctypes.CDLL:
 def error_string(code: int) -> str:
     """The CUDA runtime's name for an error code a launcher returned."""
     return load().error_string(code).decode()
+
+
+def launch(source: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call launcher ``fn_name`` of ``source``'s library with ``args`` (ints,
+    floats and tensors, which pass as their data pointers) and the current
+    stream of ``device``. Raises when it returns a CUDA error."""
+    lib = load(source)
+    ptr = ctypes.c_void_p
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(
+            *(ptr(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+              for a in args), ptr(stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: {error_string(rc)} "
+                           f"(cudaError {rc})")

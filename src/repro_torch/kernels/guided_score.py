@@ -221,18 +221,9 @@ def _call(source: str, fn_name: str, inputs, coefs, out,
     from . import build
     if out.numel() == 0:
         return out
-    lib = build.load(source)
-    ptr = ctypes.c_void_p
-    dev = out.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn_name)(
-            *(ptr(None if t is None else t.data_ptr()) for t in inputs),
-            *(ctypes.c_float(x) for x in coefs), ptr(out.data_ptr()),
-            *sizes, BLOCK_S, ptr(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: {build.error_string(rc)} "
-                           f"(cudaError {rc})")
+    build.launch(source, fn_name, out.device,
+                 *(ctypes.c_void_p(None) if t is None else t
+                   for t in inputs), *coefs, out, *sizes, BLOCK_S)
     return out
 
 

@@ -1,0 +1,386 @@
+"""Decoder-style transformer LM: RoPE / GQA / SwiGLU / RMSNorm, optional
+bidirectional mode with learned positions (BERT4Rec reuses this), optional
+SPLADE-style sparse head.
+
+The port of ``repro.models.transformer``'s dense path, as plain functions
+over a parameter dict with the reference's layout: layer weights stacked
+``[L, ...]`` and applied as ``x @ W``, so parameters carry over unchanged
+(``bridge.transformer_params_from_arrays``). Attention runs through the
+hand-written flash-attention kernel (``kernels.flash_attention``) on CUDA
+tensors and its plain version on CPU tensors; the projections, the FFN and
+the logits are ``torch.matmul``.
+
+Mixed precision: parameters are stored in ``param_dtype`` (fp32 by
+default) and every weight is cast to ``compute_dtype`` where it is used, as
+in the reference. ``compute_params`` makes that cast once, ahead of serving;
+the values are the same. Logits are float32 at any compute dtype.
+
+Single-card semantics: ``Rules`` (sharding hints), ``remat``,
+``remat_policy``, ``unroll`` and ``attn_chunk`` are kept so that the
+configs read as the reference's, and have no effect here. MoE layers
+(``moe``) and the training loss are not ported yet. A KV cache is updated
+in place (the reference returns a new one) and returned.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import flash_attention as fa
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int | None = None
+    moe: MoEConfig | None = None
+    causal: bool = True
+    rope: bool = True
+    max_position: int = 0      # >0: learned positional embeddings
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    sparse_head: bool = False  # SPLADE-style log1p-relu-maxpool head
+    compute_dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True         # no effect on one card (inference only)
+    remat_policy: str = "full"
+    unroll: bool = False       # no effect: layers are a Python loop
+    attn_chunk: int = 0        # no effect: the kernel never holds all scores
+    kv_quant: bool = False     # int8 KV cache (per-position scales)
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding rows padded to a 128 multiple (the reference's layout;
+        logical ``vocab`` is kept for sampling and the sparse head)."""
+        return -(-self.vocab // 128) * 128
+
+    def param_count(self) -> int:
+        d, dh = self.d_model, self.head_dim
+        attn = d * dh * (2 * self.n_heads + 2 * self.n_kv_heads)
+        if self.moe is not None:
+            ffn = (self.moe.n_experts * 3 * d * self.moe.d_ff_expert
+                   + d * self.moe.n_experts)
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
+        embed = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        pos = self.max_position * d
+        return self.n_layers * per_layer + embed + pos + d
+
+    def active_param_count(self) -> int:
+        """Per-token active parameters (MoE: top_k experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        attn = d * self.head_dim * (2 * self.n_heads + 2 * self.n_kv_heads)
+        ffn = self.moe.top_k * 3 * d * self.moe.d_ff_expert
+        per_layer = attn + ffn + 2 * d + d * self.moe.n_experts
+        embed = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + embed + self.max_position * d + d
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    """Logical-axis -> mesh-axis names, as the reference's. On one card
+    they shard nothing: ``c`` returns its input, ``w`` only casts."""
+    batch: Any = None
+    heads: Any = None
+    kv_seq: Any = None
+    vocab: Any = None
+    dp_size: int = 1
+    gather_weights: bool = False
+
+    def c(self, x, spec):
+        return x
+
+    def w(self, weight, dtype):
+        return weight.to(dtype)
+
+
+NO_RULES = Rules()
+
+
+def quantize_kv(x):
+    """Per-(batch, pos, head) int8 quantization: [..., Dh] -> (q, scale)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(
+        torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The parameter tree's shapes, in the reference's layout."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE layers are not ported to repro_torch "
+                                  "yet")
+    d, dh = cfg.d_model, cfg.head_dim
+    h, hkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    shapes = {
+        "embed": (cfg.padded_vocab, d),
+        "final_norm": (d,),
+        "layers": {
+            "attn_norm": (n, d), "ffn_norm": (n, d),
+            "wq": (n, d, h * dh), "wk": (n, d, hkv * dh),
+            "wv": (n, d, hkv * dh), "wo": (n, h * dh, d),
+            "w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
+            "w_down": (n, cfg.d_ff, d),
+        },
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.padded_vocab)
+    if cfg.max_position:
+        shapes["pos_embed"] = (cfg.max_position, d)
+    return shapes
+
+
+def init_params(cfg: TransformerConfig, gen: torch.Generator) -> dict:
+    """Random parameters on ``gen``'s device: norms 1, matrices normal with
+    std sqrt(2 / (fan_in + fan_out)) over their last two dims (the
+    reference's scheme; its draws differ, its key being a JAX key)."""
+    dev, pt = gen.device, cfg.param_dtype
+
+    def make(name, shape):
+        if name.endswith("norm"):
+            return torch.ones(shape, dtype=pt, device=dev)
+        t = torch.randn(shape, generator=gen, device=dev)
+        t.mul_((2.0 / (shape[-2] + shape[-1])) ** 0.5)
+        return t.to(pt)
+
+    return {name: ({n: make(n, s) for n, s in shape.items()}
+                   if isinstance(shape, dict) else make(name, shape))
+            for name, shape in param_shapes(cfg).items()}
+
+
+def compute_params(cfg: TransformerConfig, params: dict) -> dict:
+    """Every parameter cast to ``compute_dtype`` once: the values each use
+    casts to anyway, held ahead of serving, and the logits head of those
+    values widened to float32 (``head_f32``, which ``logits_fn`` would
+    otherwise widen at every call). Returns a new tree (a tensor already
+    in that dtype is shared)."""
+    def cast(tree):
+        return {k: cast(v) if isinstance(v, dict) else v.to(cfg.compute_dtype)
+                for k, v in tree.items()}
+    out = cast(params)
+    out["head_f32"] = _head(cfg, out).float()
+    return out
+
+
+# --------------------------------------------------------------------------
+# building blocks
+# --------------------------------------------------------------------------
+
+def rms_norm(x, w, eps):
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w.to(x.dtype)
+
+
+def rope(x, positions, theta):
+    """x: [B, S, H, Dh]; positions: [B, S]. cos and sin in float32, cast to
+    x's dtype."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs             # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def attention(q, k, v, causal: bool, q_offset: int):
+    """q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh] -> [B, Sq, H, Dh].
+
+    One flash-attention call on transposed views (the kernel reads the
+    [B, S, H, Dh] layout in place). The reference's ``_attention`` divides
+    the float32 scores by sqrt(Dh) and masks with -1e30; the kernel
+    multiplies by 1/sqrt(Dh) and masks with -inf: the same up to float32
+    rounding."""
+    o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal,
+                           kv_offset=q_offset)
+    return o.transpose(1, 2)
+
+
+def _dense_ffn(x, w_gate, w_up, w_down, rules: Rules):
+    hg = x @ rules.w(w_gate, x.dtype)
+    hu = x @ rules.w(w_up, x.dtype)
+    return (F.silu(hg) * hu) @ rules.w(w_down, x.dtype)
+
+
+# --------------------------------------------------------------------------
+# forward passes
+# --------------------------------------------------------------------------
+
+def _write_cache(cache_t, fresh, start: int):
+    """Write ``fresh`` [B, S, ...] into ``cache_t`` [B, max_len, ...] at
+    ``start``, in place. The reference's dynamic_update_slice clamps a
+    start that would overflow; here that raises."""
+    s = fresh.shape[1]
+    if start < 0 or start + s > cache_t.shape[1]:
+        raise ValueError(f"cache of {cache_t.shape[1]} positions cannot take "
+                         f"{s} more at {start}")
+    cache_t[:, start:start + s] = fresh
+
+
+def _layer(cfg: TransformerConfig, rules: Rules, x, lp, positions,
+           layer_cache=None, cache_len: int = 0):
+    """One block. x: [B, S, D]; ``layer_cache`` (k, v) or, with
+    ``kv_quant``, (k, v, k_scale, v_scale) of this layer, written in
+    place. Returns x."""
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cd = cfg.compute_dtype
+    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (xn @ rules.w(lp["wq"], cd)).view(b, s, h, dh)
+    k = (xn @ rules.w(lp["wk"], cd)).view(b, s, hkv, dh)
+    v = (xn @ rules.w(lp["wv"], cd)).view(b, s, hkv, dh)
+    if cfg.rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q_offset = 0
+    if layer_cache is not None and cfg.kv_quant:
+        ck, cv, cks, cvs = layer_cache
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        for dst, src in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
+            _write_cache(dst, src, cache_len)
+        k = dequantize_kv(ck, cks, cd)
+        v = dequantize_kv(cv, cvs, cd)
+        q_offset = cache_len
+    elif layer_cache is not None:
+        ck, cv = layer_cache
+        _write_cache(ck, k, cache_len)
+        _write_cache(cv, v, cache_len)
+        k, v = ck, cv
+        q_offset = cache_len
+    o = attention(q, k, v, cfg.causal, q_offset)
+    x = x + o.reshape(b, s, h * dh) @ rules.w(lp["wo"], cd)
+    xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    y = _dense_ffn(xn.reshape(b * s, -1), lp["w_gate"], lp["w_up"],
+                   lp["w_down"], rules)
+    return x + y.view(b, s, -1)
+
+
+CACHE_KEYS = ("k", "v")
+CACHE_KEYS_Q = ("k", "v", "k_scale", "v_scale")
+
+
+def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+            rules: Rules = NO_RULES, cache: dict | None = None,
+            cache_len: int | None = None):
+    """tokens: [B, S]. Returns (hidden [B, S, D], aux_loss 0.0, cache or
+    None); a cache is written in place from position ``cache_len``."""
+    if cfg.moe is not None:
+        raise NotImplementedError("MoE layers are not ported to repro_torch "
+                                  "yet")
+    cd = cfg.compute_dtype
+    b, s = tokens.shape
+    tokens = tokens.long()
+    x = params["embed"][tokens].to(cd)
+    start = 0 if cache is None else int(cache_len)
+    positions = (start + torch.arange(s, device=tokens.device)).expand(b, s)
+    if cfg.max_position:
+        x = x + params["pos_embed"][positions].to(cd)
+    keys = CACHE_KEYS_Q if cfg.kv_quant else CACHE_KEYS
+    for i in range(cfg.n_layers):
+        lp = {name: t[i] for name, t in params["layers"].items()}
+        layer_cache = (None if cache is None
+                       else tuple(cache[key][i] for key in keys))
+        x = _layer(cfg, rules, x, lp, positions, layer_cache, start)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, 0.0, cache
+
+
+def _head(cfg: TransformerConfig, params: dict) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def logits_fn(cfg: TransformerConfig, params: dict, hidden: torch.Tensor,
+              rules: Rules = NO_RULES) -> torch.Tensor:
+    """[B, S, padded_vocab] float32 logits. The reference multiplies in the
+    compute dtype with float32 accumulation; here both factors are widened
+    to float32 first, which is the same product (a product of two bfloat16
+    values is exact in float32). The widened head is ``compute_params``'s
+    ``head_f32`` where the tree holds one."""
+    head = params.get("head_f32")
+    if head is None:
+        head = _head(cfg, params).to(hidden.dtype).float()
+    return hidden.float() @ head
+
+
+def splade_encode(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+                  mask: torch.Tensor, rules: Rules = NO_RULES):
+    """SPLADE-style learned sparse representation: [B, vocab], the max over
+    the masked sequence of log(1 + relu(logits))."""
+    hidden, _, _ = forward(cfg, params, tokens, rules)
+    acts = torch.log1p(torch.relu(logits_fn(cfg, params, hidden, rules)))
+    acts = acts.masked_fill(~(mask[..., None] > 0), -torch.inf)
+    rep = acts.amax(dim=1)[:, :cfg.vocab]          # drop pad rows
+    return torch.clamp_min(rep, 0.0)
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               device) -> dict:
+    """A zero KV cache [L, B, max_len, Hkv, Dh] in the compute dtype, or
+    int8 with float32 scales [L, B, max_len, Hkv] under ``kv_quant``."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv_dtype = torch.int8 if cfg.kv_quant else cfg.compute_dtype
+    cache = {k: torch.zeros(shape, dtype=kv_dtype, device=device)
+             for k in CACHE_KEYS}
+    if cfg.kv_quant:
+        for k in CACHE_KEYS_Q[2:]:
+            cache[k] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)
+    return cache
+
+
+def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+            max_len: int, rules: Rules = NO_RULES):
+    """Run the prompt into a new cache of ``max_len`` positions. Returns
+    (last-position logits [B, 1, V], cache)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    hidden, _, cache = forward(cfg, params, tokens, rules, cache=cache,
+                               cache_len=0)
+    return logits_fn(cfg, params, hidden[:, -1:, :], rules), cache
+
+
+def decode_step(cfg: TransformerConfig, params: dict, token: torch.Tensor,
+                cache: dict, cache_len: int, rules: Rules = NO_RULES):
+    """One decode step. token: [B, 1]. Returns (logits [B, 1, V], cache)."""
+    hidden, _, cache = forward(cfg, params, token, rules, cache=cache,
+                               cache_len=cache_len)
+    return logits_fn(cfg, params, hidden, rules), cache

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-searches on the card against the same searches on the CPU.
+searches and model serve steps on the card against the same on the CPU.
 
 Marked ``cuda``: without a CUDA device every test skips (the decision is
 made in the ``cuda`` fixture, at run time). This file imports neither JAX
@@ -16,7 +16,11 @@ from repro_torch.core import build_index, twolevel
 from repro_torch.data import make_corpus
 from repro_torch.index import (compress_index, encode_runs,
                                from_encoded_grids, gather_tile_q_raw)
+from repro_torch.configs import get_arch
+from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import guided_score as gs
+from repro_torch.launch import steps
 from repro_torch.retrieval import Retriever
 
 pytestmark = pytest.mark.cuda
@@ -26,6 +30,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 products
     return torch.device("cuda")
 
 
@@ -224,3 +229,112 @@ def test_q8_search_on_card_matches_cpu(cuda):
                     "docs_survived", "chunks_dispatched"):
             np.testing.assert_array_equal(on_card.stats[key],
                                           on_cpu.stats[key])
+
+
+def _fa_bound(q, k, v, ref, **kw):
+    """Flash attention against its plain version, per element: float32
+    within 2e-4 + 2e-4 |plain| (the kernel sums in another order, divides
+    at the end and uses the fast exponential); bfloat16 within 1e-2 |plain|
+    (each side rounds a float32 value once: at most 2^-7 |x| apart) +
+    1e-4 (p @ |v|), the float32 error before that rounding, scaled by the
+    row's weighted mean of |v|. A fixed floor would pass a zeroed output of
+    a long average, whose elements are small."""
+    if ref.dtype == torch.float32:
+        return 2e-4 + 2e-4 * ref.abs()
+    mag = fa.flash_attention_plain(q, k, v.abs(), **kw).float()
+    return 1e-2 * ref.float().abs() + 1e-4 * mag
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,off", [
+    (2, 8, 2, 100, 100, 64, True, 0),       # ragged edge, GQA 4
+    (1, 4, 4, 1, 300, 128, True, 250),      # decode row, group 1
+    (3, 8, 1, 1, 77, 32, True, 76),         # decode, MQA (group 8)
+    (2, 2, 2, 200, 200, 32, False, 0),      # bidirectional (BERT4Rec)
+    (1, 4, 2, 70, 130, 24, True, 40),       # head dim 24, offset
+    (1, 2, 2, 5, 3, 64, True, 10),          # rows past a short cache
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_close_to_plain_on_card(cuda, b, h, hkv, sq, skv, d,
+                                                causal, off, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    kw = dict(causal=causal, kv_offset=off)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    bound = _fa_bound(q, k, v, ref, **kw)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    assert not bool((ref.float().abs() <= bound).all())   # zeros fail
+    torch.cuda.synchronize()
+
+
+def test_flash_attention_reads_transposed_views_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(2, 90, 8, 64, generator=g, device=cuda).bfloat16()
+    kv = torch.randn(2, 90, 2, 64, generator=g, device=cuda).bfloat16()
+    a = fa.flash_attention(x.transpose(1, 2), kv.transpose(1, 2),
+                           kv.transpose(1, 2))
+    assert a.transpose(1, 2).is_contiguous()          # q's layout kept
+    b = fa.flash_attention(x.transpose(1, 2).contiguous(),
+                           kv.transpose(1, 2).contiguous(),
+                           kv.transpose(1, 2).contiguous())
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*(torch.zeros(1, 1, 4, 12, device=cuda)
+                             .bfloat16(),) * 3)
+
+
+@pytest.mark.parametrize("f,v,d,b,l", [
+    (1, 1000, 64, 37, 1), (1, 500, 256, 64, 16), (3, 200, 64, 10, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_equal_plain_on_card(cuda, f, v, d, b, l, dtype):
+    """Bit-equal: both add in j order, rounding each product and sum to
+    the table's dtype; weight-0 padding and out-of-range slots included."""
+    g = torch.Generator(device=cuda).manual_seed(f * v + l)
+    table = torch.randn(f, v, d, generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, v, (b, f, l), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand(b, f, l, generator=g, device=cuda).to(dtype)
+    w[:, :, -1] = 0                                  # padding slots
+    idx[0, 0, 0] = v                                 # out of range
+    if f == 1:
+        table, idx, w = table[0], idx[:, 0].contiguous(), w[:, 0].contiguous()
+    torch.testing.assert_close(eb.embedding_bag(table, idx, w),
+                               eb.embedding_bag_plain(table, idx, w),
+                               rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+def _on(tree, device):
+    if isinstance(tree, dict):
+        return {k: _on(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, device) for v in tree]
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+@pytest.mark.parametrize("arch_id,shape", [("granite-3-2b", "decode_32k"),
+                                           ("dlrm-rm2", "serve_p99")])
+def test_smoke_serve_step_on_card_matches_cpu(cuda, arch_id, shape):
+    """A smoke LM decode step (float32 logits within 2e-4) and a smoke
+    DLRM serve step (scores within 1e-5) on the card against the same
+    step on the CPU, each through its kernel on the card."""
+    arch = get_arch(arch_id)
+    cfg = arch.smoke()
+    params = steps.init_fn(arch, shape, cfg, device="cpu")(0)
+    batch = steps.smoke_batch(arch, shape, cfg, device="cpu")
+    step = steps.make_serve_step(arch, shape, cfg)
+    card_args = (_on(params, cuda), *_on(batch, cuda).values())
+    cpu = step(params, *batch.values())
+    kern = fa if arch.family == "lm" else eb
+    before = kern.launches
+    card = step(*card_args)
+    assert kern.launches > before
+    out_cpu, out_card = (o[0] if isinstance(o, tuple) else o
+                         for o in (cpu, card))
+    tol = 2e-4 if arch.family == "lm" else 1e-5
+    torch.testing.assert_close(out_card.cpu(), out_cpu, rtol=tol, atol=tol)

@@ -153,7 +153,8 @@ def test_open_on_cuda_without_gpu_raises(setup):
 def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     """repro_torch runs with ``jax`` and ``repro`` unimportable: a finder
     that refuses both is installed before anything is imported; it builds
-    and searches the fp32 and the compressed (q8) index."""
+    and searches the fp32 and the compressed (q8) index, and runs a smoke
+    LM decode step and a smoke DLRM serve step."""
     script = textwrap.dedent("""
         import sys
 
@@ -184,6 +185,20 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
                 assert resp.ids.shape == (4, 10)
                 assert np.isfinite(resp.scores).all()
         assert index.gather_kind == "q8"
+
+        import repro_torch.models, repro_torch.sparse_ops
+        from repro_torch.configs import get_arch
+        from repro_torch.launch import steps
+        for arch_id, shape in (("granite-3-2b", "decode_32k"),
+                               ("dlrm-rm2", "serve_p99")):
+            arch = get_arch(arch_id)
+            cfg = arch.smoke()
+            params = steps.init_fn(arch, shape, cfg, device="cpu")(0)
+            batch = steps.smoke_batch(arch, shape, cfg, device="cpu")
+            out = steps.make_serve_step(arch, shape, cfg)(params,
+                                                          *batch.values())
+            out = out[0] if isinstance(out, tuple) else out
+            assert out.isfinite().all()
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not leaked, leaked
