@@ -33,6 +33,7 @@ SOURCE_FLAGS = {
     "guided_score_q.cu": ("-fmad=false",),
     "embedding_bag.cu": ("-fmad=false",),
     "flash_attention.cu": (),
+    "flash_attention_mma.cu": (),
 }
 SOURCES = tuple(SOURCE_FLAGS)
 
@@ -67,6 +68,11 @@ SIGNATURES = {
     "flash_attention.cu": {
         "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_L] * 12
                                   + [_I, _I, _F, _P],
+    },
+    # the same without dtype (bfloat16 only)
+    "flash_attention_mma.cu": {
+        "flash_attention_mma_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
+                                      + [_I, _I, _F, _P],
     },
 }
 _RESTYPES = {"error_string": ctypes.c_char_p}

@@ -7,19 +7,26 @@ batched by ``vmap``; here the batch is a dimension of the call. Query head
 ``h`` attends kv head ``h // (H // Hkv)``. With ``causal``, query row ``i``
 sits at absolute position ``kv_offset + i`` and sees keys ``0 ..
 kv_offset + i``; ``kv_offset`` is a runtime int (a decode step passes the
-cache length). The output has q's dtype; scores, softmax and the weighted
-sum are computed in float32.
+cache length). The output has q's dtype; scores and softmax are computed
+in float32, and the weighted sum accumulates in float32.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version, a
-CUDA tensor launches the kernel (``csrc/flash_attention.cu``) or raises.
-There is no fallback. The kernel takes any strides with D contiguous, so a
-caller may pass transposed views of [B, S, H, D] tensors; it needs float32
-or bfloat16, D <= 128 with rows on a 16-byte boundary.
+CUDA tensor launches a kernel or raises. There is no fallback. Two kernels,
+chosen by ``route(q, k)`` from shape and dtype alone:
 
-Tolerances against the plain version (which masks with -inf and
-normalises before the weighted sum) are stated where they are checked:
-float32 within 2e-4 (the kernel sums in another order and divides at the
-end), bfloat16 within a bfloat16 rounding of the output.
+- "mma" (``csrc/flash_attention_mma.cu``): bfloat16 on the tensor cores
+  (mma.sync, a two-stage cp.async K/V ring), for D % 16 == 0, D <= 128 and
+  at least 64 query rows per kv head (group * Sq): prefill, a cache-free
+  forward, an encoder. As the TPU kernel, it rounds P to bfloat16 before
+  the P V product.
+- "simt" (``csrc/flash_attention.cu``): float32 on the CUDA cores, for
+  everything else (decode steps, float32 inputs, other head dims); it
+  keeps P in float32.
+
+Both take any strides with D contiguous, so a caller may pass transposed
+views of [B, S, H, D] tensors; they need float32 (simt) or bfloat16, D <=
+128 with rows on a 16-byte boundary. ``tolerance`` gives each route's
+per-element bound against the plain version.
 """
 from __future__ import annotations
 
@@ -27,10 +34,12 @@ import math
 
 import torch
 
-SOURCE = "flash_attention.cu"
+SOURCES = {"simt": "flash_attention.cu", "mma": "flash_attention_mma.cu"}
 MAX_HEAD_DIM = 128
+MMA_MIN_ROWS = 64           # query rows per kv head that fill an mma block
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0                # kernel launches since reset_launches()
+launches_by_route = {"mma": 0, "simt": 0}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -69,6 +78,45 @@ def _check(q, k, v, kv_offset: int) -> None:
         raise ValueError(f"flash_attention: kv_offset={kv_offset} < 0")
 
 
+def route(q, k) -> str:
+    """The kernel a CUDA call of these shapes and dtype launches: "mma" for
+    bfloat16 with D % 16 == 0, D <= 128 and group * Sq >= 64 query rows
+    per kv head; "simt" otherwise (decode steps, float32, other D)."""
+    d = q.shape[-1]
+    rows = q.shape[1] // k.shape[1] * q.shape[2]
+    if (q.dtype == torch.bfloat16 and d % 16 == 0 and d <= MAX_HEAD_DIM
+            and rows >= MMA_MIN_ROWS):
+        return "mma"
+    return "simt"
+
+
+def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
+    """Per-element bound on |kernel - plain| for ``route``'s kernel, where
+    ``ref`` is ``flash_attention_plain(q, k, v, **kw)``.
+
+    - float32: 2e-4 + 2e-4 |ref|. The kernel sums in another order,
+      divides at the end and uses the fast exponential.
+    - bfloat16, "simt": 1e-2 |ref| + 1e-4 (p @ |v|). Each side rounds a
+      float32 value to bfloat16 once, so they are at most 2^-7 |x| apart;
+      1e-4 is the float32 error before that rounding, scaled by the row's
+      weighted mean of |v| (``p @ |v|``, the plain version on |v|). A fixed
+      floor would pass a zeroed output of a long average, whose elements
+      are small.
+    - bfloat16, "mma": 1e-2 |ref| + (2^-8 + 1e-4) (p @ |v|). The kernel
+      also rounds each weight p_j to bfloat16 before the P V product (as
+      the TPU kernel does), which moves it by at most 2^-8 p_j, while the
+      row sum l is taken from the unrounded p. The output sum_j p_j v_j / l
+      so moves by at most 2^-8 sum_j p_j |v_j| / l = 2^-8 (p @ |v|).
+    """
+    if route not in launches_by_route:
+        raise ValueError(f"flash_attention: unknown route {route!r}")
+    if ref.dtype == torch.float32:
+        return 2e-4 + 2e-4 * ref.abs()
+    mag = flash_attention_plain(q, k, v.abs(), **kw).float()
+    weight = 1e-4 + (2.0 ** -8 if route == "mma" else 0.0)
+    return 1e-2 * ref.float().abs() + weight * mag
+
+
 def _check_cuda(q, k, v) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel: q, k, v must share one "
@@ -94,8 +142,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     kv_offset: int = 0) -> torch.Tensor:
     """Attention of q [B, H, Sq, D] over k, v [B, Hkv, Skv, D] -> [B, H, Sq,
     D] in q's dtype. ``sm_scale`` defaults to 1/sqrt(D). CPU tensors run
-    the plain version; CUDA tensors launch the kernel (counted in the
-    module's ``launches``). The CUDA output has q's memory layout."""
+    the plain version; CUDA tensors launch ``route(q, k)``'s kernel
+    (counted in the module's ``launches`` and ``launches_by_route``). The
+    CUDA output has q's memory layout."""
     global launches
     kv_offset = int(kv_offset)
     _check(q, k, v, kv_offset)
@@ -105,22 +154,37 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda(q, k, v)
-    from . import build
-    b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
     if sm_scale is None:
-        sm_scale = 1.0 / (d ** 0.5)
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     out = torch.empty_like(q)          # keeps q's layout (and alignment)
     if out.numel() == 0:
         return out
-    build.launch(SOURCE, "flash_attention_launch", q.device, q, k, v, out,
-                 _DTYPES[q.dtype], b, h, hkv, sq, skv, d, *q.stride()[:3],
-                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                 int(causal), kv_offset, float(sm_scale))
+    way = route(q, k)
+    _launch(way, q, k, v, out, causal, float(sm_scale), kv_offset)
     launches += 1
+    launches_by_route[way] += 1
     return out
+
+
+def _launch(way, q, k, v, out, causal, sm_scale, kv_offset) -> None:
+    """Launch route ``way``'s kernel into ``out`` (checked CUDA tensors),
+    uncounted: ``flash_attention`` counts its own calls."""
+    from . import build
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    geometry = (b, h, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *out.stride()[:3], int(causal), kv_offset,
+                sm_scale)
+    if way == "mma":
+        build.launch(SOURCES[way], "flash_attention_mma_launch", q.device,
+                     q, k, v, out, *geometry)
+    else:
+        build.launch(SOURCES[way], "flash_attention_launch", q.device, q, k,
+                     v, out, _DTYPES[q.dtype], *geometry)
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for way in launches_by_route:
+        launches_by_route[way] = 0

@@ -231,41 +231,46 @@ def test_q8_search_on_card_matches_cpu(cuda):
                                           on_cpu.stats[key])
 
 
-def _fa_bound(q, k, v, ref, **kw):
-    """Flash attention against its plain version, per element: float32
-    within 2e-4 + 2e-4 |plain| (the kernel sums in another order, divides
-    at the end and uses the fast exponential); bfloat16 within 1e-2 |plain|
-    (each side rounds a float32 value once: at most 2^-7 |x| apart) +
-    1e-4 (p @ |v|), the float32 error before that rounding, scaled by the
-    row's weighted mean of |v|. A fixed floor would pass a zeroed output of
-    a long average, whose elements are small."""
-    if ref.dtype == torch.float32:
-        return 2e-4 + 2e-4 * ref.abs()
-    mag = fa.flash_attention_plain(q, k, v.abs(), **kw).float()
-    return 1e-2 * ref.float().abs() + 1e-4 * mag
+# b, h, hkv, sq, skv, d, causal, kv_offset, and the route of a bfloat16
+# call (float32 always takes "simt")
+FA_CASES = [
+    (2, 8, 2, 100, 100, 64, True, 0, "mma"),      # ragged edge, GQA 4
+    (1, 4, 4, 1, 300, 128, True, 250, "simt"),    # decode row, group 1
+    (3, 8, 1, 1, 77, 32, True, 76, "simt"),       # decode, MQA (group 8)
+    (2, 2, 2, 200, 200, 32, False, 0, "mma"),     # bidirectional (BERT4Rec)
+    (1, 4, 2, 70, 130, 24, True, 40, "simt"),     # head dim 24, offset
+    (1, 2, 2, 5, 3, 64, True, 10, "simt"),        # rows past a short cache
+    # the "mma" odd shapes of chip_smoke.py's sweep
+    (1, 8, 1, 70, 300, 48, True, 230, "mma"),     # group 8, D 48 (padded)
+    (2, 4, 4, 130, 190, 128, True, 60, "mma"),    # group 1, D 128, offset
+    (1, 4, 4, 200, 150, 32, True, 0, "mma"),      # Sq > Skv
+    (1, 16, 2, 333, 333, 64, False, 0, "mma"),    # group 8, bidirectional
+    (1, 4, 1, 16, 1000, 64, True, 984, "mma"),    # 64 rows over a long cache
+    (1, 8, 8, 64, 64, 128, True, 0, "mma"),       # one full block
+]
 
 
-@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,off", [
-    (2, 8, 2, 100, 100, 64, True, 0),       # ragged edge, GQA 4
-    (1, 4, 4, 1, 300, 128, True, 250),      # decode row, group 1
-    (3, 8, 1, 1, 77, 32, True, 76),         # decode, MQA (group 8)
-    (2, 2, 2, 200, 200, 32, False, 0),      # bidirectional (BERT4Rec)
-    (1, 4, 2, 70, 130, 24, True, 40),       # head dim 24, offset
-    (1, 2, 2, 5, 3, 64, True, 10),          # rows past a short cache
-])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,off,way", FA_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_close_to_plain_on_card(cuda, b, h, hkv, sq, skv, d,
-                                                causal, off, dtype):
+                                                causal, off, way, dtype):
+    """Within ``fa.tolerance`` of the plain version, through the route's
+    kernel (its counter moves, the other's does not); a zeroed output
+    fails that bound."""
     g = torch.Generator(device=cuda).manual_seed(sq + skv)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
                for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
     kw = dict(causal=causal, kv_offset=off)
-    before = fa.launches
+    if dtype == torch.float32:
+        way = "simt"
+    assert fa.route(q, k) == way
+    before, total = dict(fa.launches_by_route), fa.launches
     out = fa.flash_attention(q, k, v, **kw)
-    assert fa.launches == before + 1
+    assert fa.launches == total + 1
+    assert fa.launches_by_route == {**before, way: before[way] + 1}
     assert out.dtype == dtype and out.shape == q.shape
     ref = fa.flash_attention_plain(q, k, v, **kw)
-    bound = _fa_bound(q, k, v, ref, **kw)
+    bound = fa.tolerance(q, k, v, ref, way, **kw)
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= bound).all()), float((diff - bound).max())
     assert not bool((ref.float().abs() <= bound).all())   # zeros fail
@@ -276,8 +281,11 @@ def test_flash_attention_reads_transposed_views_on_card(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(2, 90, 8, 64, generator=g, device=cuda).bfloat16()
     kv = torch.randn(2, 90, 2, 64, generator=g, device=cuda).bfloat16()
+    assert fa.route(x.transpose(1, 2), kv.transpose(1, 2)) == "mma"
+    before = fa.launches_by_route["mma"]
     a = fa.flash_attention(x.transpose(1, 2), kv.transpose(1, 2),
                            kv.transpose(1, 2))
+    assert fa.launches_by_route["mma"] == before + 1
     assert a.transpose(1, 2).is_contiguous()          # q's layout kept
     b = fa.flash_attention(x.transpose(1, 2).contiguous(),
                            kv.transpose(1, 2).contiguous(),
