@@ -30,16 +30,20 @@ Phases, one JSON line each:
   lm        granite-3-2b at full width (fp32 master, bf16 compute):
             prefill of 4 x 4096 prompts into a 4128-position cache and 32
             greedy decode steps through flash_attention (prefill on its
-            "mma" route, decode on "simt"), with launch counts by route,
+            "mma" route, decode on "split"), with launch counts by route,
             bytes, a profile of each, and the last 8 steps against a
             cache-free forward (logits within 2% of max |ref|; argmax
             identical where the reference's top-2 margin exceeds twice the
-            measured max |d|)
+            measured max |d|); K6 at decode also timed on inputs that
+            rotate over the 40 layers' caches (1.35 GB, past the L2)
+  lm_f32    the same model in float32 compute (the reference's smoke
+            configs' dtype): prefill 4 x 128, 8 decode steps, every K6
+            call on its "simt" route, against a cache-free forward
   recsys    dlrm-rm2, two-tower-retrieval and bert4rec at full width:
             serve_p99 (batch 512) and retrieval_cand (1,000,448 candidates,
             top-100) through embedding_bag / flash_attention, each against
             the same step on the CPU
-  kernels_models  flash_attention (both routes) and embedding_bag against
+  kernels_models  flash_attention (three routes) and embedding_bag against
             their plain versions on the main path's inputs (captured from
             the lm and recsys runs, where a zeroed output and one without
             each row's last key tile are shown to fail the route's
@@ -47,7 +51,7 @@ Phases, one JSON line each:
             beside the bound, the plain version and one PyTorch library
             call
 
-Then the six kernels' summary line (flash_attention once, with its two
+Then the six kernels' summary line (flash_attention once, with its three
 routes), the nvidia-smi line and, last, the one-line verdict. Any failed
 check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
@@ -56,7 +60,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
+import itertools
 import json
 import math
 import statistics
@@ -670,15 +676,15 @@ RECSYS_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "bert4rec")
 RECSYS_CHECK_ROWS, RECSYS_CHECK_CANDS = 8, 65536
 # K6 against its plain version, per element: ``fa.tolerance`` of the
 # call's route (float32 2e-4 + 2e-4 |plain|; bfloat16 1e-2 |plain| +
-# 1e-4 (p @ |v|) on "simt", + (2^-8 + 1e-4) (p @ |v|) on "mma", which
-# rounds P to bfloat16). The outputs of a long average are small, so a
+# 1e-4 (p @ |v|) on "simt", + (2^-8 + 1e-4) (p @ |v|) on "mma" and
+# "split", which round P to bfloat16). The outputs of a long average are small, so a
 # fixed floor would pass a zeroed output; each main-path check also shows
 # that a zeroed output and one without the last key tile fail. K5:
 # bit-equal.
-FA_TILE_KEYS = 64               # keys per tile (kBK of both K6 kernels)
+FA_TILE_KEYS = 64               # keys per tile (kBK of every K6 kernel)
 FA_TOLERANCE = ("float32 within 2e-4 + 2e-4|plain|; bfloat16 within "
                 "1e-2|plain| + 1e-4 (p @ |v|) on simt, 1e-2|plain| + "
-                "(2^-8 + 1e-4) (p @ |v|) on mma")
+                "(2^-8 + 1e-4) (p @ |v|) on mma and split")
 # The decode path against a cache-free forward, and bfloat16 models on
 # the card against the CPU: max |d| <= 2% of max |reference| (bfloat16
 # keeps about 3 significant digits, and the two paths round their matrix
@@ -690,6 +696,10 @@ BF16_MODEL_RTOL = 0.02
 # top, so argmax must agree only where the reference's top-2 margin
 # exceeds 2 e; at least this many of the 32 positions must be such.
 LM_STRICT_MIN = 8
+# The float32 model (every K6 call on "simt"): decode against the
+# cache-free forward within 1e-3 of max |ref| (float32 throughout, TF32
+# off; the two paths only sum in other orders).
+LM_F32_PROMPT, LM_F32_DECODE, F32_MODEL_RTOL = 128, 8, 1e-3
 
 
 def model_kernels():
@@ -886,10 +896,14 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
     """K6 on main-path inputs: checked against its plain version (one
     sequence at a time where the plain version's float32 scores of all
     sequences would not fit beside the model), timed beside its bound,
-    the plain version and SDPA; on the mma route also the simt kernel's
-    time on the same inputs (``simt_ms``, uncounted)."""
+    the plain version and SDPA; on the mma and split routes also the simt
+    kernel's time on the same inputs (``simt_ms``, uncounted)."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = args
+    # held to the plain version that keeps P in float32, which
+    # ``fa.tolerance`` is derived against (the model's ``round_p`` asks the
+    # CPU path for the reference model's rounding; the card ignores it)
+    kwargs = {key: val for key, val in kwargs.items() if key != "round_p"}
     causal, off = kwargs.get("causal", True), kwargs.get("kv_offset", 0)
     split = per_sequence_plain
     kern = functools.partial(fa.flash_attention, q, k, v, **kwargs)
@@ -915,7 +929,7 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
     lib = sdpa_call(q, k, v, causal, off)
     t_k, t_p = timings(kern), timings(plain)
     way = fa.route(q, k)
-    if way == "mma":        # the simt kernel on the same inputs, for scale
+    if way != "simt":       # the simt kernel on the same inputs, for scale
         out = torch.empty_like(q)
         t_k["simt_ms"] = timings(functools.partial(
             fa._launch, "simt", q, k, v, out, causal,
@@ -926,6 +940,38 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
             "library_ms": None if lib is None else timings(lib)["ms"],
             "library": "scaled_dot_product_attention(enable_gqa)",
             **fa_bound(q, k, causal, off)}
+
+
+def rotating_fa(q, layers, kwargs) -> dict:
+    """K6 at decode on inputs that rotate over every layer's cache
+    (``layers``: one (k, v) view per layer; 1.35 GB at the LM's decode
+    shape, far past the 50 MB L2), so each call reads its K/V from device
+    memory as a decode step does: the route's kernel, the simt kernel (both
+    uncounted) and SDPA, each timed over one pass through all layers."""
+    from repro_torch.kernels import flash_attention as fa
+    causal, off = kwargs.get("causal", True), kwargs.get("kv_offset", 0)
+    scale = kwargs.get("sm_scale") or q.shape[-1] ** -0.5
+    way = fa.route(q, layers[0][0])
+    out = torch.empty_like(q)
+
+    def rotate(calls):
+        it = itertools.cycle(calls)
+        return lambda: next(it)()
+
+    ms = {}
+    for name, w in (("ms", way), ("simt_ms", "simt")):
+        ms[name] = device_ms(rotate([functools.partial(
+            fa._launch, w, q, k, v, out, causal, scale, off)
+            for k, v in layers]), _cycles_per_ms(), runs=len(layers))["ms"]
+    lib = [sdpa_call(q, k, v, causal, off) for k, v in layers]
+    ms["library_ms"] = (None if lib[0] is None else device_ms(
+        rotate(lib), _cycles_per_ms(), runs=len(layers))["ms"])
+    bound = fa_bound(q, layers[0][0], causal, off)
+    return {"route": way, "layers": len(layers),
+            "bytes_all_layers": bound["bytes"] * len(layers), **ms,
+            "bound_ms": bound["bound_ms"],
+            "timing": "events, back to back behind a spin kernel, one pass "
+                      "over the layers' caches"}
 
 
 def measure_eb(args) -> dict:
@@ -989,8 +1035,10 @@ def check_argmax(got, ref, diff: float) -> dict:
 def phase_lm(seed: int, dev) -> dict:
     """granite-3-2b at full width: prefill 4 x 4096 prompts into a 4128
     cache, 32 greedy decode steps, the last 8 against a cache-free forward,
-    K6 checked and timed on the layer-0 inputs of both, a profile of each.
-    Returns the launch counts and K6's main-path measurements."""
+    K6 checked and timed on the layer-0 inputs of both (decode also on
+    inputs rotating over every layer's cache), a profile of each; then
+    the float32 path (``phase_lm_f32``). Returns the launch counts and
+    K6's main-path measurements."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
@@ -1018,7 +1066,8 @@ def phase_lm(seed: int, dev) -> dict:
     (logits, cache), prefill_ms = synced_ms(lambda: prefill(params, tokens))
     launches = {"prefill": model_launches()}
     require(launches["prefill"]["flash_attention_routes"] == {
-        "mma": cfg.n_layers, "simt": 0}, f"prefill: K6 launches by route "
+        "mma": cfg.n_layers, "simt": 0, "split": 0},
+        f"prefill: K6 launches by route "
         f"{launches['prefill']['flash_attention_routes']}, expected "
         f"{cfg.n_layers} on mma")
     require(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
@@ -1043,9 +1092,10 @@ def phase_lm(seed: int, dev) -> dict:
     decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
     launches["decode"] = model_launches()
     require(launches["decode"]["flash_attention_routes"] == {
-        "mma": 0, "simt": cfg.n_layers * LM_DECODE}, f"decode: K6 launches "
-        f"by route {launches['decode']['flash_attention_routes']}, expected "
-        f"{cfg.n_layers} per step on simt")
+        "mma": 0, "simt": 0, "split": cfg.n_layers * LM_DECODE},
+        f"decode: K6 launches by route "
+        f"{launches['decode']['flash_attention_routes']}, expected "
+        f"{cfg.n_layers} per step on split")
     dec = torch.stack(dec_logits, 1)                 # [B, 32, V]
     require(bool(torch.isfinite(dec).all()), "decode: non-finite logits")
     peak = torch.cuda.max_memory_allocated()
@@ -1057,7 +1107,8 @@ def phase_lm(seed: int, dev) -> dict:
     hidden, _, _ = T.forward(cfg, params, seq)
     ref_launches = model_launches()      # a check, not the main path
     require(ref_launches["flash_attention_routes"] == {
-        "mma": cfg.n_layers, "simt": 0}, f"cache-free forward: K6 launches "
+        "mma": cfg.n_layers, "simt": 0, "split": 0},
+        f"cache-free forward: K6 launches "
         f"by route {ref_launches['flash_attention_routes']}")
     ref = T.logits_fn(cfg, params, hidden[:, LM_PROMPT + LM_DECODE - 8:])
     got = dec[:, LM_DECODE - 8:]
@@ -1075,6 +1126,10 @@ def phase_lm(seed: int, dev) -> dict:
                 params, gen[-1], cache, LM_MAX_LEN - 1), warm=False)}
     main = {"prefill": measure_fa(*pre_args, per_sequence_plain=True),
             "decode": measure_fa(*dec_args, per_sequence_plain=False)}
+    main["decode"]["rotating"] = rotating_fa(
+        dec_args[0][0], [tuple(cache[key][i].transpose(1, 2)
+                               for key in ("k", "v"))
+                         for i in range(cfg.n_layers)], dec_args[1])
     emit("lm", arch=LM_ARCH, source=arch.source,
          config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
                  "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
@@ -1103,10 +1158,93 @@ def phase_lm(seed: int, dev) -> dict:
                                              "wrong_outputs_rejected",
                                              "shape")}
                        for k, v in main.items()},
+         decode_rotating=main["decode"]["rotating"],
          reduced=["prefill_32k: batch 32 x 32768 -> 4 x 4096 (time limit)",
                   "decode_32k: batch 128 x 32768 cache -> 4 x 4128 (one "
                   "card's memory)", "long_500k not run"])
-    del master, params, cache, pre_args, dec_args
+    del params, cache, pre_args, dec_args
+    f32 = phase_lm_f32(arch, cfg, master, seed)
+    del master
+    launches.update(f32["launches"])
+    main["decode_f32"] = f32["main"]
+    return {"launches": launches, "main": main}
+
+
+def phase_lm_f32(arch, cfg, master, seed: int) -> dict:
+    """The LM at full width in float32 compute, the path of K6's "simt"
+    route: prefill 4 x 128 prompts into a 136-position cache, 8 greedy
+    decode steps against a cache-free forward, K6 checked and timed on the
+    layer-0 inputs of a decode step. Returns the launch counts and K6's
+    measurement."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    params = T.compute_params(cfg, master)        # the master's tensors
+    max_len = LM_F32_PROMPT + LM_F32_DECODE
+    tokens = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        1, cfg.vocab, (LM_BATCH, LM_F32_PROMPT)).astype(np.int32)).to(
+        master["embed"].device)
+    prefill = steps.make_serve_step(arch, "prefill_32k", cfg,
+                                    max_len=max_len)
+    decode = steps.make_serve_step(arch, "decode_32k", cfg)
+    prefill(params, tokens)                                 # warm-up run
+    reset_model_launches()
+    (logits, cache), prefill_ms = synced_ms(lambda: prefill(params, tokens))
+    launches = {"prefill_f32": model_launches()}
+    gen = [logits[:, -1].argmax(-1)[:, None]]
+    dec_logits = []
+    reset_model_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_F32_DECODE):
+        if i == 1:
+            with first_call(fa, "flash_attention") as seen:
+                lg, cache = decode(params, gen[-1], cache, LM_F32_PROMPT + i)
+            dec_args = seen[0]
+        else:
+            lg, cache = decode(params, gen[-1], cache, LM_F32_PROMPT + i)
+        dec_logits.append(lg[:, 0])
+        gen.append(lg[:, -1].argmax(-1)[:, None])
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_F32_DECODE
+    launches["decode_f32"] = model_launches()
+    for name, n in (("prefill_f32", cfg.n_layers),
+                    ("decode_f32", cfg.n_layers * LM_F32_DECODE)):
+        require(launches[name]["flash_attention_routes"] == {
+            "mma": 0, "simt": n, "split": 0}, f"{name}: K6 launches by "
+            f"route {launches[name]['flash_attention_routes']}, expected "
+            f"{n} on simt")
+    got = torch.stack(dec_logits, 1)                 # [B, 8, V]
+    require(bool(torch.isfinite(got).all()), "lm_f32: non-finite logits")
+    seq = torch.cat([tokens] + [g.to(tokens.dtype) for g in gen[:-1]], 1)
+    hidden, _, _ = T.forward(cfg, params, seq)
+    ref = T.logits_fn(cfg, params, hidden[:, LM_F32_PROMPT:])
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    require(diff <= F32_MODEL_RTOL * scale,
+            f"lm_f32 decode vs cache-free forward: max|d| {diff} > "
+            f"{F32_MODEL_RTOL} * {scale}")
+    argmax = check_argmax(got, ref[..., :cfg.vocab], diff)
+    del hidden, ref
+    main = measure_fa(*dec_args, per_sequence_plain=False)
+    emit("lm_f32", arch=LM_ARCH, compute_dtype=str(cfg.compute_dtype),
+         prefill={"batch": LM_BATCH, "prompt": LM_F32_PROMPT,
+                  "max_len": max_len, "ms": prefill_ms},
+         decode={"steps": LM_F32_DECODE, "ms_per_step": decode_ms},
+         launches=launches,
+         check={"decode_vs_cache_free_forward": {
+             "steps": LM_F32_DECODE, "max_abs_diff": diff,
+             "max_abs_logit": scale, **argmax,
+             "tolerance": f"max|d| <= {F32_MODEL_RTOL} * max|ref|"}},
+         kernel_check={f: main[f] for f in ("route", "max_abs_err",
+                                            "wrong_outputs_rejected",
+                                            "shape")},
+         reduced=[f"float32 compute, prompt {LM_BATCH} x {LM_F32_PROMPT} and "
+                  f"{LM_F32_DECODE} decode steps: the path of the simt "
+                  f"route, not a serving cell"])
+    del params, cache, dec_args
     return {"launches": launches, "main": main}
 
 
@@ -1202,7 +1340,8 @@ def phase_recsys(seed: int, dev) -> dict:
                                        f"launched")
             if kname == "flash_attention":      # BERT4Rec's encoder: mma
                 require(counts["flash_attention_routes"] == {
-                    "mma": counts[kname], "simt": 0}, f"{arch_id} {shape}: "
+                    "mma": counts[kname], "simt": 0, "split": 0},
+                    f"{arch_id} {shape}: "
                     f"K6 launches by route {counts['flash_attention_routes']}")
             res = first_tensor(out)
             require(bool(torch.isfinite(res).all()),
@@ -1293,7 +1432,17 @@ def phase_model_kernels(dev) -> list:
             (1, 4, 4, 200, 150, 32, True, 0, bf, False),  # Sq > Skv
             (1, 16, 2, 333, 333, 64, False, 0, bf, False),  # group 8
             (1, 4, 1, 16, 1000, 64, True, 984, bf, False),  # 64 rows
-            (2, 32, 8, 300, 1100, 64, True, 777, bf, True)]:  # view, GQA 4
+            (2, 32, 8, 300, 1100, 64, True, 777, bf, True),  # view, GQA 4
+            # split: group 1/4/8, D 32/48/128, Sq 2-4, an offset on a split
+            # edge, a last split of one key, a [B, S, H, D] cache view
+            (2, 8, 8, 2, 700, 32, True, 600, bf, False),  # group 1, D 32
+            (1, 16, 4, 3, 1500, 48, True, 1400, bf, False),  # group 4, D 48
+            (2, 16, 2, 2, 2000, 128, True, 1900, bf, False),  # 16 rows
+            (2, 8, 2, 4, 700, 64, True, 640, bf, False),  # offset on an edge
+            (4, 32, 8, 1, 4128, 64, True, 4096, bf, False),  # last: one key
+            (4, 32, 8, 1, 4128, 64, True, 3000, bf, True),  # cache view
+            (1, 4, 4, 1, 333, 64, False, 0, bf, False),   # bidirectional
+            (1, 1, 1, 17, 300, 64, True, 200, bf, False)]:  # 17 rows: simt
         if view:            # [B, S, H, D] tensors, read through views
             q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
                        .transpose(1, 2)
@@ -1317,7 +1466,7 @@ def phase_model_kernels(dev) -> list:
                       "bshd_view": view, "max_abs_err": fa_close(
                           f"flash_attention {b}x{h}/{hkv}x{sq}x{skv}x{d}",
                           out, ref, fa_tolerance(q, k, v, ref, kw))})
-    require({r["route"] for r in sweep} == {"mma", "simt"},
+    require({r["route"] for r in sweep} == set(fa.SOURCES),
             "flash_attention sweep: a route never ran")
     for (f, vocab, d, b, l, dt) in [
             (1, 1000, 64, 37, 1, f32), (1, 500, 256, 300, 16, f32),
@@ -1366,6 +1515,7 @@ def main() -> int:
     from repro_torch.data import make_corpus
     from repro_torch.index import compress_index
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
     log = build.build_all()
@@ -1436,13 +1586,14 @@ def main() -> int:
     model_main = {"flash_attention": lm["main"]["prefill"],
                   "embedding_bag": rec["main"]["dlrm-rm2"]}
     model_other = {"flash_attention": {"decode": lm["main"]["decode"],
+                                       "decode_f32": lm["main"]["decode_f32"],
                                        "bert4rec": rec["main"]["bert4rec"]},
                    "embedding_bag": {"two-tower-retrieval":
                                      rec["main"]["two-tower-retrieval"]}}
     emit("kernels_models", main=model_main, other=model_other, sweep=sweep,
          tolerance="embedding_bag bit-equal; flash_attention " + FA_TOLERANCE)
     model_counts = {name: 0 for name in model_kernels()}
-    fa_routes = {"mma": 0, "simt": 0}
+    fa_routes = dict.fromkeys(fa.SOURCES, 0)
     for counts in (*lm["launches"].values(), *rec["launches"].values()):
         for name in model_counts:
             model_counts[name] += counts[name]
@@ -1480,20 +1631,22 @@ def main() -> int:
             "other": {k: {f: o[f] for f in timed}
                       for k, o in model_other[name].items()}})
         require(model_counts[name] > 0, f"{name} never launched on its path")
-    # K6 by route: mma at prefill (and bert4rec), simt at decode
-    from repro_torch.kernels import flash_attention as fa
+    # K6 by route: mma at prefill (and bert4rec), split at decode, simt at
+    # the float32 decode
     fa_main = {"mma": {"prefill": lm["main"]["prefill"],
                        "bert4rec": rec["main"]["bert4rec"]},
-               "simt": {"decode": lm["main"]["decode"]}}
+               "split": {"decode": lm["main"]["decode"]},
+               "simt": {"decode_f32": lm["main"]["decode_f32"]}}
     summary["kernels"][-2]["routes"] = {
         way: {"source": src + fa.SOURCES[way], "launches": fa_routes[way],
               "max_abs_err": max(
                   [o["max_abs_err"] for o in fa_main[way].values()]
                   + [r["max_abs_err"] for r in sweep
                      if r.get("route") == way]),
-              **{k: {f: o[f] for f in timed + ("simt_ms",) if f in o}
+              **{k: {f: o[f] for f in timed + ("simt_ms", "rotating")
+                     if f in o}
                  for k, o in fa_main[way].items()}}
-        for way in ("mma", "simt")}
+        for way in fa_main}
     for way, n in fa_routes.items():
         require(n > 0, f"flash_attention: the {way} route never launched "
                        f"on its path")

@@ -34,6 +34,7 @@ SOURCE_FLAGS = {
     "embedding_bag.cu": ("-fmad=false",),
     "flash_attention.cu": (),
     "flash_attention_mma.cu": (),
+    "flash_attention_split.cu": (),
 }
 SOURCES = tuple(SOURCE_FLAGS)
 
@@ -73,6 +74,11 @@ SIGNATURES = {
     "flash_attention_mma.cu": {
         "flash_attention_mma_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
                                       + [_I, _I, _F, _P],
+    },
+    # q, k, v, o, scratch, the mma arguments, n_split, split_keys, stream
+    "flash_attention_split.cu": {
+        "flash_attention_split_launch": [_P] * 5 + [_I] * 6 + [_L] * 12
+                                        + [_I, _I, _F, _I, _I, _P],
     },
 }
 _RESTYPES = {"error_string": ctypes.c_char_p}

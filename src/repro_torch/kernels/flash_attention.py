@@ -11,43 +11,56 @@ cache length). The output has q's dtype; scores and softmax are computed
 in float32, and the weighted sum accumulates in float32.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version, a
-CUDA tensor launches a kernel or raises. There is no fallback. Two kernels,
-chosen by ``route(q, k)`` from shape and dtype alone:
+CUDA tensor launches a kernel or raises. There is no fallback. Three
+kernels, chosen by ``route(q, k)`` from shape and dtype alone:
 
+- "split" (``csrc/flash_attention_split.cu``): bfloat16 with at most 16
+  query rows per kv head (group * Sq), D <= 128 and D % 8 == 0: a decode
+  step. The keys are split over ``n_split`` blocks per kv head
+  (``split_plan``), each writing a float32 partial (m, l, acc) to
+  scratch, and a second kernel joins them: two device launches per call.
 - "mma" (``csrc/flash_attention_mma.cu``): bfloat16 on the tensor cores
   (mma.sync, a two-stage cp.async K/V ring), for D % 16 == 0, D <= 128 and
-  at least 64 query rows per kv head (group * Sq): prefill, a cache-free
-  forward, an encoder. As the TPU kernel, it rounds P to bfloat16 before
-  the P V product.
+  at least 64 query rows per kv head: prefill, a cache-free forward, an
+  encoder.
 - "simt" (``csrc/flash_attention.cu``): float32 on the CUDA cores, for
-  everything else (decode steps, float32 inputs, other head dims); it
-  keeps P in float32.
+  everything else (float32 inputs, bfloat16 with 17-63 rows per kv head or
+  D % 16 != 0 above 16 rows); it keeps P in float32.
 
-Both take any strides with D contiguous, so a caller may pass transposed
-views of [B, S, H, D] tensors; they need float32 (simt) or bfloat16, D <=
-128 with rows on a 16-byte boundary. ``tolerance`` gives each route's
+"split" and "mma" round the unnormalized weights P to bfloat16 before the
+P V product and take l from the unrounded P, as the TPU kernel does. All
+take any strides with D contiguous, so a caller may pass transposed views
+of [B, S, H, D] tensors; they need float32 (simt) or bfloat16, D <= 128
+with rows on a 16-byte boundary. ``tolerance`` gives each route's
 per-element bound against the plain version.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
-SOURCES = {"simt": "flash_attention.cu", "mma": "flash_attention_mma.cu"}
+SOURCES = {"simt": "flash_attention.cu", "mma": "flash_attention_mma.cu",
+           "split": "flash_attention_split.cu"}
 MAX_HEAD_DIM = 128
 MMA_MIN_ROWS = 64           # query rows per kv head that fill an mma block
+SPLIT_MAX_ROWS = 16         # query rows per kv head a split block holds
+SPLIT_TILE_KEYS = 64        # keys per tile of the split kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-launches = 0                # kernel launches since reset_launches()
-launches_by_route = {"mma": 0, "simt": 0}
+launches = 0                # flash_attention calls on the card since reset
+launches_by_route = {"mma": 0, "simt": 0, "split": 0}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          sm_scale: float | None = None,
-                          kv_offset: int = 0) -> torch.Tensor:
+                          sm_scale: float | None = None, kv_offset: int = 0,
+                          round_p: bool = False) -> torch.Tensor:
     """The plain PyTorch version (a port of ``ref.flash_attention_ref``,
     batched): float32 scores times ``sm_scale``, -inf above the causal
-    diagonal, softmax, weighted sum, cast to q's dtype."""
+    diagonal, softmax, weighted sum, cast to q's dtype. With ``round_p``
+    the normalized weights are rounded to v's dtype before the weighted
+    sum, as the reference model's attention does (``p.astype(v.dtype)``;
+    the identity for float32 v)."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -61,6 +74,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         k_pos = torch.arange(skv, device=q.device)[None, :]
         s = s.masked_fill(q_pos < k_pos, -math.inf)
     p = torch.softmax(s, dim=-1)
+    if round_p:
+        p = p.to(v.dtype).float()
     return torch.einsum("bhqk,bhkd->bhqd", p, vg).to(q.dtype)
 
 
@@ -79,15 +94,31 @@ def _check(q, k, v, kv_offset: int) -> None:
 
 
 def route(q, k) -> str:
-    """The kernel a CUDA call of these shapes and dtype launches: "mma" for
-    bfloat16 with D % 16 == 0, D <= 128 and group * Sq >= 64 query rows
-    per kv head; "simt" otherwise (decode steps, float32, other D)."""
+    """The kernel a CUDA call of these shapes and dtype launches, by the
+    query rows per kv head (group * Sq): for bfloat16 with D <= 128,
+    "split" at <= 16 rows and D % 8 == 0, "mma" at >= 64 rows and
+    D % 16 == 0; "simt" otherwise (float32, other rows and D)."""
     d = q.shape[-1]
     rows = q.shape[1] // k.shape[1] * q.shape[2]
-    if (q.dtype == torch.bfloat16 and d % 16 == 0 and d <= MAX_HEAD_DIM
-            and rows >= MMA_MIN_ROWS):
-        return "mma"
+    if q.dtype == torch.bfloat16 and d <= MAX_HEAD_DIM:
+        if rows <= SPLIT_MAX_ROWS and d % 8 == 0:
+            return "split"
+        if rows >= MMA_MIN_ROWS and d % 16 == 0:
+            return "mma"
     return "simt"
+
+
+def split_plan(batch: int, hkv: int, n_keys: int, n_sm: int) -> tuple:
+    """(n_split, split_keys) of the "split" kernel for ``n_keys`` visible
+    keys: the fewest splits that give at least 2 blocks per SM over the
+    batch * hkv kv heads, no more than there are 64-key tiles, each split
+    an equal whole number of tiles (the last may be shorter)."""
+    tiles = -(-n_keys // SPLIT_TILE_KEYS)
+    if tiles == 0:
+        return 1, SPLIT_TILE_KEYS
+    want = min(tiles, -(-2 * n_sm // (batch * hkv)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * SPLIT_TILE_KEYS
 
 
 def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
@@ -102,18 +133,21 @@ def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
       weighted mean of |v| (``p @ |v|``, the plain version on |v|). A fixed
       floor would pass a zeroed output of a long average, whose elements
       are small.
-    - bfloat16, "mma": 1e-2 |ref| + (2^-8 + 1e-4) (p @ |v|). The kernel
-      also rounds each weight p_j to bfloat16 before the P V product (as
-      the TPU kernel does), which moves it by at most 2^-8 p_j, while the
-      row sum l is taken from the unrounded p. The output sum_j p_j v_j / l
-      so moves by at most 2^-8 sum_j p_j |v_j| / l = 2^-8 (p @ |v|).
+    - bfloat16, "mma" and "split": 1e-2 |ref| + (2^-8 + 1e-4) (p @ |v|).
+      The kernel also rounds each weight p_j to bfloat16 before the P V
+      product (as the TPU kernel does), which moves it by at most
+      2^-8 p_j, while the row sum l is taken from the unrounded p. The
+      output sum_j p_j v_j / l so moves by at most 2^-8 sum_j p_j |v_j| /
+      l = 2^-8 (p @ |v|). "split" rounds each p_j against its split's
+      running max and rescales the split's sums by e^(m_s - m) in float32,
+      which scales the rounded term and its error alike: the same bound.
     """
     if route not in launches_by_route:
         raise ValueError(f"flash_attention: unknown route {route!r}")
     if ref.dtype == torch.float32:
         return 2e-4 + 2e-4 * ref.abs()
     mag = flash_attention_plain(q, k, v.abs(), **kw).float()
-    weight = 1e-4 + (2.0 ** -8 if route == "mma" else 0.0)
+    weight = 1e-4 + (2.0 ** -8 if route in ("mma", "split") else 0.0)
     return 1e-2 * ref.float().abs() + weight * mag
 
 
@@ -138,19 +172,21 @@ def _check_cuda(q, k, v) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None,
-                    kv_offset: int = 0) -> torch.Tensor:
+                    sm_scale: float | None = None, kv_offset: int = 0,
+                    round_p: bool = False) -> torch.Tensor:
     """Attention of q [B, H, Sq, D] over k, v [B, Hkv, Skv, D] -> [B, H, Sq,
     D] in q's dtype. ``sm_scale`` defaults to 1/sqrt(D). CPU tensors run
-    the plain version; CUDA tensors launch ``route(q, k)``'s kernel
-    (counted in the module's ``launches`` and ``launches_by_route``). The
-    CUDA output has q's memory layout."""
+    the plain version (``round_p`` passes to it); CUDA tensors launch
+    ``route(q, k)``'s kernel (counted in the module's ``launches`` and
+    ``launches_by_route``), which rounds P as its route does whatever
+    ``round_p`` says. The CUDA output has q's memory layout."""
     global launches
     kv_offset = int(kv_offset)
     _check(q, k, v, kv_offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale, kv_offset=kv_offset)
+                                     sm_scale=sm_scale, kv_offset=kv_offset,
+                                     round_p=round_p)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda(q, k, v)
@@ -166,6 +202,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(way, q, k, v, out, causal, sm_scale, kv_offset) -> None:
     """Launch route ``way``'s kernel into ``out`` (checked CUDA tensors),
     uncounted: ``flash_attention`` counts its own calls."""
@@ -175,7 +216,16 @@ def _launch(way, q, k, v, out, causal, sm_scale, kv_offset) -> None:
     geometry = (b, h, hkv, sq, skv, d, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *out.stride()[:3], int(causal), kv_offset,
                 sm_scale)
-    if way == "mma":
+    if way == "split":
+        n_keys = min(skv, kv_offset + sq) if causal else skv
+        n_split, split_keys = split_plan(b, hkv, n_keys,
+                                         _sm_count(q.device))
+        # float32 partials: m and l [n_split, B*H*Sq], acc [.., D]
+        scratch = torch.empty(n_split * b * h * sq * (d + 2),
+                              dtype=torch.float32, device=q.device)
+        build.launch(SOURCES[way], "flash_attention_split_launch", q.device,
+                     q, k, v, out, scratch, *geometry, n_split, split_keys)
+    elif way == "mma":
         build.launch(SOURCES[way], "flash_attention_mma_launch", q.device,
                      q, k, v, out, *geometry)
     else:

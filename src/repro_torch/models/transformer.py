@@ -224,10 +224,13 @@ def attention(q, k, v, causal: bool, q_offset: int):
     [B, S, H, Dh] layout in place). The reference's ``_attention`` divides
     the float32 scores by sqrt(Dh) and masks with -1e30; the kernel
     multiplies by 1/sqrt(Dh) and masks with -inf: the same up to float32
-    rounding."""
+    rounding. The reference rounds the softmax weights to the compute
+    dtype before P V; so does the plain version here (``round_p``), and on
+    the card the "mma" and "split" routes, which round the unnormalized
+    weights as the TPU kernel does."""
     o = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), causal=causal,
-                           kv_offset=q_offset)
+                           kv_offset=q_offset, round_p=True)
     return o.transpose(1, 2)
 
 

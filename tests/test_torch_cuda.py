@@ -235,11 +235,20 @@ def test_q8_search_on_card_matches_cpu(cuda):
 # call (float32 always takes "simt")
 FA_CASES = [
     (2, 8, 2, 100, 100, 64, True, 0, "mma"),      # ragged edge, GQA 4
-    (1, 4, 4, 1, 300, 128, True, 250, "simt"),    # decode row, group 1
-    (3, 8, 1, 1, 77, 32, True, 76, "simt"),       # decode, MQA (group 8)
+    (1, 4, 4, 1, 300, 128, True, 250, "split"),   # decode row, group 1
+    (3, 8, 1, 1, 77, 32, True, 76, "split"),      # decode, MQA (group 8)
     (2, 2, 2, 200, 200, 32, False, 0, "mma"),     # bidirectional (BERT4Rec)
     (1, 4, 2, 70, 130, 24, True, 40, "simt"),     # head dim 24, offset
-    (1, 2, 2, 5, 3, 64, True, 10, "simt"),        # rows past a short cache
+    (1, 2, 2, 5, 3, 64, True, 10, "split"),       # rows past a short cache
+    # the "split" cases of chip_smoke.py's sweep
+    (4, 32, 8, 1, 4128, 64, True, 4097, "split"),  # the LM decode step
+    (2, 8, 8, 2, 700, 32, True, 600, "split"),    # group 1, D 32, Sq 2
+    (1, 16, 4, 3, 1500, 48, True, 1400, "split"),  # group 4, D 48, Sq 3
+    (2, 16, 2, 2, 2000, 128, True, 1900, "split"),  # group 8, D 128, 16 rows
+    (4, 32, 8, 1, 4128, 64, True, 4096, "split"),  # last split of one key
+    (2, 8, 2, 4, 700, 64, True, 640, "split"),    # offset on a split edge
+    (1, 4, 4, 1, 333, 64, False, 0, "split"),     # bidirectional
+    (1, 1, 1, 17, 300, 64, True, 200, "simt"),    # 17 rows
     # the "mma" odd shapes of chip_smoke.py's sweep
     (1, 8, 1, 70, 300, 48, True, 230, "mma"),     # group 8, D 48 (padded)
     (2, 4, 4, 130, 190, 128, True, 60, "mma"),    # group 1, D 128, offset
@@ -274,6 +283,34 @@ def test_flash_attention_close_to_plain_on_card(cuda, b, h, hkv, sq, skv, d,
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= bound).all()), float((diff - bound).max())
     assert not bool((ref.float().abs() <= bound).all())   # zeros fail
+    torch.cuda.synchronize()
+
+
+def test_flash_attention_split_reads_cache_views_on_card(cuda):
+    """The "split" route reads a [B, max_len, Hkv, D] cache and a [B, 1, H,
+    D] query through transposed views, as the decode step passes them:
+    equal to the same call on contiguous copies, within the bound; an
+    output without the row's last 64-key tile fails it."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 1, 32, 64, generator=g, device=cuda).bfloat16()
+    cache = torch.randn(2, 2, 1100, 8, 64, generator=g, device=cuda
+                        ).bfloat16()
+    q, k, v = (t.transpose(1, 2) for t in (x, cache[0], cache[1]))
+    kw = dict(causal=True, kv_offset=1000)
+    assert fa.route(q, k) == "split"
+    before = fa.launches_by_route["split"]
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches_by_route["split"] == before + 1
+    assert out.transpose(1, 2).is_contiguous()
+    same = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              **kw)
+    torch.testing.assert_close(out, same, rtol=0, atol=0)
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    bound = fa.tolerance(q, k, v, ref, "split", **kw)
+    assert bool(((out.float() - ref.float()).abs() <= bound).all())
+    cut = fa.flash_attention_plain(q, k[:, :, :960], v[:, :, :960],
+                                   causal=False)
+    assert not bool(((cut.float() - ref.float()).abs() <= bound).all())
     torch.cuda.synchronize()
 
 
