@@ -15,16 +15,22 @@ Phases, one JSON line each:
             maxima equal to the fp32 index's
   kernels   each kernel (fp32: guided_score_chunk/_tile; q8:
             guided_score_chunk_q/_tile_q) against its plain PyTorch version
-            on real main-path inputs and odd shapes; times beside the
-            card's bound
+            on real main-path inputs and odd shapes, bit for bit; times
+            beside the card's bound; each tile kernel also beside the chunk
+            launcher on the same tile (``prev_ms``: the design the tile
+            kernels had before ``guided_score_tile.cu``) and that launcher
+            writing only the zero rows of a skipped tile (``floor_ms``)
   serve     per index, Retriever.search on 4 batches of 16 queries at k=10
             and k=100 through the chunk kernel (traversal="chunked_fused")
             and the tile kernel (traversal="chunked"), with launch counts;
             the tile path against the plain batched path; on q8, the top-k
             overlap with the fp32 paths
   profile   one batch of each path under the profiler (device busy and idle
-            share, launches, host syncs, top device ops); fp32 at k=10 and
-            k=100, q8 at k=10
+            share, launches, host syncs, top device ops, the port's own
+            kernels); fp32 at k=10 and k=100, q8 at k=10
+  profile_tile_ab  the tile path at k=10 with the tile kernels' earlier
+            design patched in, in turns with the kernel (earlier, kernel,
+            kernel, earlier): device busy of the same batch on one card
   rank_safe per index, a rank-safe chunked_fused run against an exhaustive
             top-k computed on the card (q8: over the dequantized postings)
   lm        granite-3-2b at full width (fp32 master, bf16 compute):
@@ -182,14 +188,18 @@ def require(cond: bool, what: str) -> None:
 # kernels
 # --------------------------------------------------------------------------
 
-def random_inputs(rng, lead, nq, p, tile_size, dev):
+def random_inputs(rng, lead, nq, p, tile_size, dev, full_every=0):
     """Kernel inputs of the gather's form: per (row, term) a strictly
-    increasing run of distinct offsets followed by -1 padding."""
+    increasing run of distinct offsets followed by -1 padding; with
+    ``full_every``, every such run (counted over rows and terms) holds
+    min(P, S) postings."""
     n = int(np.prod(lead))
     offs = np.full((n, nq, p), -1, np.int32)
     for r in range(n):
         for i in range(nq):
             cnt = int(rng.integers(0, min(p, tile_size) + 1))
+            if full_every and (r * nq + i) % full_every == 0:
+                cnt = min(p, tile_size)
             offs[r, i, :cnt] = np.sort(rng.choice(tile_size, cnt,
                                                   replace=False))
     valid = offs >= 0
@@ -251,15 +261,16 @@ def random_q8_rows(rng, lead, nq, p, s, dev):
 
 def compare(name, out_k, out_p) -> float:
     """Masks (rows 3-4) and q8's postings per slot (row 5) identical, rows
-    0-2 within 1e-5 * max|plain|."""
+    0-2 bit-equal (every product and sum rounded as the plain version
+    rounds it). Returns max|d| of rows 0-2, which must be 0."""
     require(out_k.shape == out_p.shape, f"{name}: shape {tuple(out_k.shape)}"
             f" != {tuple(out_p.shape)}")
     require(bool(torch.isfinite(out_k).all()), f"{name}: non-finite output")
     require(torch.equal(out_k[..., 3:, :], out_p[..., 3:, :]),
             f"{name}: masks or posting counts differ")
     err = (out_k[..., :3, :] - out_p[..., :3, :]).abs().max().item()
-    scale = out_p[..., :3, :].abs().max().item()
-    require(err <= 1e-5 * scale, f"{name}: max|d| {err} > 1e-5 * {scale}")
+    require(torch.equal(out_k[..., :3, :], out_p[..., :3, :]),
+            f"{name}: rows 0-2 not bit-equal, max|d| {err}")
     return err
 
 
@@ -347,16 +358,57 @@ def kernel_args(ctx, x, chunk: bool) -> tuple:
             x.th_lo, ctx.alpha, ctx.beta, ctx.gamma)
 
 
+@functools.lru_cache(maxsize=None)
+def skip_flags(b: int, skip: int, device) -> torch.Tensor:
+    return torch.full((b, 1), skip, dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def tile_kernels_as_chunk(skip: int):
+    """Within the block the tile wrappers run each tile through the chunk
+    launcher, as a chunk of one tile with its skip flag set to ``skip``:
+    with 0 the design the tile kernels had before ``guided_score_tile.cu``
+    (the chunk template plus one flag read), with 1 a launch that only
+    writes the zero rows. For comparisons in one run on one card."""
+    from repro_torch.kernels import guided_score as gs
+    launch, launch_q = gs._launch, gs._launch_q
+
+    def redirect(orig, chunk_name):
+        def call(fn_name, *args, b, c, tile_size):
+            if "tile" not in fn_name:
+                return orig(fn_name, *args, b=b, c=c, tile_size=tile_size)
+            *rows, ess, pb, _, th, alpha, beta, gamma = args
+            n_rows = 5 if "_q" in fn_name else 3
+            return orig(chunk_name, *(t.unsqueeze(1) for t in rows[:n_rows]),
+                        *rows[n_rows:], ess.unsqueeze(1), pb.unsqueeze(1),
+                        skip_flags(b, skip, th.device), th, alpha, beta,
+                        gamma, b=b, c=1, tile_size=tile_size)[:, 0]
+        return call
+    gs._launch = redirect(launch, "guided_score_chunk_launch")
+    gs._launch_q = redirect(launch_q, "guided_score_chunk_q_launch")
+    try:
+        yield
+    finally:
+        gs._launch, gs._launch_q = launch, launch_q
+
+
+def through_chunk_launcher(fn, skip: int):
+    """``fn()`` (a tile wrapper's call) under ``tile_kernels_as_chunk``."""
+    with tile_kernels_as_chunk(skip):
+        return fn()
+
+
 def phase_kernels(indexes, corpus, dev):
     from repro_torch.core.traversal import Carry, step_inputs
     from repro_torch.kernels import guided_score as gs
 
     S = indexes["fp32"].tile_size
-    main = {}
+    main, prev_floor, ctxs = {}, {}, {}
     for label, (chunk_name, tile_name) in (
             ("fp32", ("guided_score_chunk", "guided_score_tile")),
             ("q8", ("guided_score_chunk_q", "guided_score_tile_q"))):
         ctx, x1, x2 = main_path_inputs(indexes[label], corpus, dev)
+        ctxs[label] = ctx
         bnd = bound_q8 if label == "q8" else bound_fp32
         for name, x, chunk in ((chunk_name, x1, True),
                                (tile_name, x2, False)):
@@ -366,37 +418,46 @@ def phase_kernels(indexes, corpus, dev):
             main[name] = (functools.partial(kern, *args, tile_size=S),
                           functools.partial(plain, *args, tile_size=S),
                           bnd(x, S))
-        if label == "q8":
-            # the chunk schedule's sentinel tile: every run empty
-            sentinel = kernel_args(ctx, step_inputs(
-                ctx, Carry.init(BATCH, ctx.k, dev),
-                torch.full((BATCH,), indexes[label].n_tiles,
-                           dtype=torch.int32, device=dev)), False)
-            out = gs.guided_score_tile_q(*sentinel, tile_size=S)
-            compare("guided_score_tile_q sentinel", out,
-                    gs.guided_score_tile_q_plain(*sentinel, tile_size=S))
-            require(not bool(out.any()), "sentinel tile: nonzero output")
+        prev_floor[tile_name] = tuple(
+            functools.partial(through_chunk_launcher, main[tile_name][0], flag)
+            for flag in (0, 1))
     errs = {name: compare(f"{name} main", kern(), plain())
             for name, (kern, plain, _) in main.items()}
+    for name, (prev, floor) in prev_floor.items():
+        compare(f"{name} main, earlier design", prev(), main[name][0]())
+        require(not bool(floor().any()), f"{name} floor: nonzero output")
     torch.cuda.synchronize()
 
     # Odd shapes: Nq not a power of 2, P < S, S below block_s, S not a
     # multiple of block_s, a fully skipped chunk, Nq large enough that the
     # launcher must shrink block_s to fit shared memory; for q8 also runs
-    # of 0, 1 and P postings and every gap width.
+    # of 0, 1 and P postings and every gap width. Then the tile kernels'
+    # edges: two presence-mask words (Nq 33, 64), runs longer than 32
+    # postings crossing lane blocks, S not a multiple of the lane width or
+    # below it, runs of exactly P (fp32: every ``full``-th run; q8: the
+    # third run of each case); the q8 sentinel tile is the last row.
     rng = np.random.default_rng(1234)
     sweep = []
-    for (b, c, nq, p, s, skip_mode) in [
-            (3, 4, 5, 96, 384, "mixed"), (4, 2, 7, 300, 1000, "mixed"),
-            (2, 3, 16, 64, 2048, "all"), (2, 2, 64, 128, 1024, "none"),
-            (1, 1, 1, 8, 64, "none"), (2, 2, 16, 2048, 2048, "none")]:
+    for (b, c, nq, p, s, skip_mode, full) in [
+            (3, 4, 5, 96, 384, "mixed", 0), (4, 2, 7, 300, 1000, "mixed", 0),
+            (2, 3, 16, 64, 2048, "all", 0), (2, 2, 64, 128, 1024, "none", 0),
+            (1, 1, 1, 8, 64, "none", 0), (2, 2, 16, 2048, 2048, "none", 0),
+            (2, 2, 33, 200, 2000, "mixed", 0),
+            (3, 2, 64, 512, 1500, "none", 0),
+            (2, 2, 16, 2048, 2048, "none", 3),
+            (2, 2, 64, 40, 2048, "none", 4), (2, 1, 5, 40, 100, "none", 0)]:
         skip = {"all": np.ones((b, c)), "none": np.zeros((b, c)),
                 "mixed": rng.random((b, c)) < 0.4}[skip_mode]
         skip = torch.from_numpy(skip.astype(np.int32)).to(dev)
         th = torch.from_numpy(rng.random(b).astype(np.float32) * 3).to(dev)
         th[0] = -math.inf
-        offs, wb, wl, ess, pb = random_inputs(rng, (b, c), nq, p, s, dev)
-        row = {"shape": [b, c, nq, p, s], "skip": skip_mode}
+        offs, wb, wl, ess, pb = random_inputs(rng, (b, c), nq, p, s, dev,
+                                              full)
+        row = {"shape": [b, c, nq, p, s], "skip": skip_mode,
+               "lane_width": gs.tile_lane_width(nq, s)}
+        if full:
+            row["full_runs"] = int(((offs >= 0).sum(-1) == p).sum())
+            require(row["full_runs"] > 0, "sweep: no run of exactly P")
         cases = [("chunk", (offs, wb, wl), ())]
         if s >= 384:
             qw = torch.from_numpy(rng.random((2, b, nq)).astype(np.float32)
@@ -422,6 +483,18 @@ def phase_kernels(indexes, corpus, dev):
                 getattr(gs, tname)(*targs, tile_size=s),
                 getattr(gs, tname + "_plain")(*targs, tile_size=s))
         sweep.append(row)
+    # the chunk schedule's sentinel tile on the q8 index: every run empty
+    ctx = ctxs["q8"]
+    sentinel = kernel_args(ctx, step_inputs(
+        ctx, Carry.init(BATCH, ctx.k, dev),
+        torch.full((BATCH,), indexes["q8"].n_tiles, dtype=torch.int32,
+                   device=dev)), False)
+    out = gs.guided_score_tile_q(*sentinel, tile_size=S)
+    sweep.append({"shape": list(sentinel[0].shape), "skip": "sentinel tile",
+                  "tile_q_err": compare(
+                      "guided_score_tile_q sentinel", out,
+                      gs.guided_score_tile_q_plain(*sentinel, tile_size=S))})
+    require(not bool(out.any()), "sentinel tile: nonzero output")
     torch.cuda.synchronize()
 
     result = {}
@@ -430,9 +503,21 @@ def phase_kernels(indexes, corpus, dev):
         result[name] = {"max_abs_err": errs[name], **timings(kern),
                         "plain_ms": t_plain["ms"],
                         "plain_event_ms": t_plain["event_ms"], **bnd}
+    for name, (prev, floor) in prev_floor.items():
+        # in turns on the same inputs: earlier design, kernel, write-only
+        # floor, kernel, earlier design
+        t_prev = [timings(prev)["ms"]]
+        t_kern = [result[name]["ms"]]
+        t_floor = timings(floor)["ms"]
+        t_kern.append(timings(main[name][0])["ms"])
+        t_prev.append(timings(prev)["ms"])
+        result[name].update(
+            ms=statistics.mean(t_kern), ms_runs=t_kern,
+            prev_ms=statistics.mean(t_prev), prev_ms_runs=t_prev,
+            floor_ms=t_floor,
+            lane_width=gs.tile_lane_width(main[name][2]["shape"][-2], S))
     emit("kernels", main=result, sweep=sweep,
-         tolerance="masks and posting counts identical; rows 0-2 max|d| "
-                   "<= 1e-5*max|plain|")
+         tolerance="masks and posting counts identical; rows 0-2 bit-equal")
     return result
 
 
@@ -552,7 +637,15 @@ def profile_call(fn, warm: bool = True) -> dict:
             "device_ops": sum(e.count for e in dev), "host_calls": host,
             "top_device": [{"name": e.key[:80], "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
-                           for e in top]}
+                           for e in top],
+            "port_kernels": [{"name": e.key[:80], "count": e.count,
+                              "ms": e.self_device_time_total / 1e3}
+                             for e in dev if any(
+                                 k in e.key for k in PORT_KERNEL_NAMES)]}
+
+
+# the __global__ functions of src/repro_torch/kernels/csrc/*.cu
+PORT_KERNEL_NAMES = ("guided_score", "flash_attention", "embedding_bag")
 
 
 # the two kernel paths of each index: (kernel, traversal)
@@ -624,6 +717,18 @@ def phase_serve(label, index, corpus, dev):
     emit("profile", index=label,
          **{name: [profile_search(r, corpus, k) for k in PROFILE_KS[label]]
             for name, r in paths})
+
+    # The tile path at k=10 with the tile kernels' earlier design patched
+    # in, in turns with the kernel: earlier, kernel, kernel, earlier.
+    ab = []
+    for design in ("earlier", "kernel", "kernel", "earlier"):
+        with (tile_kernels_as_chunk(0) if design == "earlier"
+              else contextlib.nullcontext()):
+            prof = profile_search(paths[1][1], corpus, KS[0])
+        ab.append({"design": design, **{f: prof[f] for f in (
+            "wall_ms_profiled", "device_busy_ms", "device_idle_share",
+            "device_ops", "port_kernels")}})
+    emit("profile_tile_ab", index=label, path=tile_name, k=KS[0], runs=ab)
     return launches, served
 
 
@@ -1602,9 +1707,9 @@ def main() -> int:
 
     src = "src/repro_torch/kernels/csrc/"
     where = {"guided_score_chunk": ("guided_score.cu", 123),
-             "guided_score_tile": ("guided_score.cu", 36),
+             "guided_score_tile": ("guided_score_tile.cu", 36),
              "guided_score_chunk_q": ("guided_score_q.cu", 413),
-             "guided_score_tile_q": ("guided_score_q.cu", 298)}
+             "guided_score_tile_q": ("guided_score_tile.cu", 298)}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src + cu,
          "replaces": f"src/repro/kernels/guided_score.py:{line}",
@@ -1612,7 +1717,9 @@ def main() -> int:
          "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
-         "bound_by": kern[name]["bound_by"], "library_ms": None}
+         "bound_by": kern[name]["bound_by"], "library_ms": None,
+         **{f: kern[name][f] for f in ("prev_ms", "floor_ms")
+            if f in kern[name]}}
         for name, (cu, line) in where.items()]}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, cu, line in (("flash_attention", "flash_attention_mma.cu", 29),

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS = {
     "guided_score.cu": ("-fmad=false",),
     "guided_score_q.cu": ("-fmad=false",),
+    "guided_score_tile.cu": ("-fmad=false",),
     "embedding_bag.cu": ("-fmad=false",),
     "flash_attention.cu": (),
     "flash_attention_mma.cu": (),
@@ -52,13 +53,15 @@ _GUIDED_Q_ARGS = [_P] * 11 + [_F, _F, _F, _P] + [_I] * 7 + [_P]
 _L = ctypes.c_longlong
 SIGNATURES = {
     "guided_score.cu": {
-        "guided_score_tile_launch": _GUIDED_ARGS,
         "guided_score_chunk_launch": _GUIDED_ARGS,
         "error_string": [_I],
     },
     "guided_score_q.cu": {
-        "guided_score_tile_q_launch": _GUIDED_Q_ARGS,
         "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
+    },
+    "guided_score_tile.cu": {
+        "guided_score_tile_launch": _GUIDED_ARGS,
+        "guided_score_tile_q_launch": _GUIDED_Q_ARGS,
     },
     # table, idx, w, out, dtype, n_bags, n_fields, bag_len, vocab, d, stream
     "embedding_bag.cu": {

@@ -1,10 +1,11 @@
-// Guided tile scoring for Hopper (sm_90a): the 2GTI scatter / essential-
-// presence / descending-freeze / combine passes of one (query, tile).
+// Guided chunk scoring for Hopper (sm_90a): the 2GTI scatter / essential-
+// presence / descending-freeze / combine passes of each (query, tile) of a
+// chunk of C tiles per query, with a per-tile skip flag.
 //
-// Replaces the TPU kernels repro/kernels/guided_score.py::guided_score_tile
-// (_kernel) and ::guided_score_chunk (_chunk_kernel). One template serves
-// both: the chunk form reads a per-tile skip flag, the tile form is C = 1
-// without one.
+// Replaces the TPU kernel repro/kernels/guided_score.py::guided_score_chunk
+// (_chunk_kernel). The one-tile form (guided_score_tile) is
+// guided_score_tile.cu; this template's kHasSkip = false form is not
+// instantiated.
 //
 // Grid: (lane blocks of block_s slots, C tiles, B queries); one block of
 // kThreads threads per cell. A block
@@ -167,21 +168,6 @@ int launch(const int* offs, const float* wb, const float* wl,
 }  // namespace
 
 extern "C" {
-
-// [B, Nq, P] -> [B, 5, S]; `skip` and `C` are ignored (C = 1, no skip).
-int guided_score_tile_launch(const int* offs, const float* wb,
-                             const float* wl, const float* essential,
-                             const float* prefix_beta, const int* skip,
-                             const float* th_lo, float alpha, float beta,
-                             float gamma, float* out, int B, int C, int nq,
-                             int p, int tile_size, int block_s,
-                             void* stream) {
-  (void)skip;
-  (void)C;
-  return launch<false>(offs, wb, wl, essential, prefix_beta, nullptr, th_lo,
-                       alpha, beta, gamma, out, B, 1, nq, p, tile_size,
-                       block_s, stream);
-}
 
 // [B, C, Nq, P] -> [B, C, 5, S]; skip [B, C] nonzero = zero rows.
 int guided_score_chunk_launch(const int* offs, const float* wb,

@@ -1,13 +1,14 @@
-// Decode-in-kernel guided tile scoring for Hopper (sm_90a) on the
+// Decode-in-kernel guided chunk scoring for Hopper (sm_90a) on the
 // compressed (q8) index: the delta/bit-pack and int8 decode of a tile's
 // posting runs, then the 2GTI scatter / essential-presence / descending-
 // freeze / combine passes of guided_score.cu, plus a 6th output row, the
-// valid postings per doc slot (the executor's presence and postings stats).
+// valid postings per doc slot (the executor's presence and postings stats),
+// for each tile of a chunk of C tiles per query, with a per-tile skip flag.
 //
-// Replaces the TPU kernels repro/kernels/guided_score.py::guided_score_tile_q
-// (_kernel_q + _decode_rows) and ::guided_score_chunk_q (_chunk_kernel_q +
-// _decode_rows). One template serves both: the chunk form reads a per-tile
-// skip flag, the tile form is C = 1 without one.
+// Replaces the TPU kernel repro/kernels/guided_score.py::guided_score_chunk_q
+// (_chunk_kernel_q + _decode_rows). The one-tile form (guided_score_tile_q)
+// is guided_score_tile.cu; this template's kHasSkip = false form is not
+// instantiated.
 //
 // Inputs are the raw rows of repro_torch.index.compressed.gather_tile_q_raw,
 // batched: per (query b, tile c, term i) `words` [Wp] int32 packed gaps,
@@ -50,7 +51,7 @@
 // and writes 24 * S B of output. A lane block re-decodes its tile's runs up
 // to its own end (lane block k of n decodes about (k + 1) / n of each run;
 // at S = 2048 and block_s = 512 the four blocks decode 2.5 runs' worth);
-// the repeats hit L2.
+// the repeats hit L2. (guided_score_tile.cu skips whole words instead.)
 //
 // Rounding: every product and sum is an explicit round-to-nearest intrinsic
 // and the library is built with -fmad=false. The dequantization
@@ -267,24 +268,6 @@ int launch(const int* words, const uint8_t* qb, const uint8_t* ql,
 }  // namespace
 
 extern "C" {
-
-// [B, Nq, ...] raw rows -> [B, 6, S]; `skip` and `C` are ignored (C = 1,
-// no skip).
-int guided_score_tile_q_launch(const int* words, const uint8_t* qb,
-                               const uint8_t* ql, const int* meta_i,
-                               const float* meta_f, const float* qw_b,
-                               const float* qw_l, const float* essential,
-                               const float* prefix_beta, const int* skip,
-                               const float* th_lo, float alpha, float beta,
-                               float gamma, float* out, int B, int C, int nq,
-                               int wp, int p, int tile_size, int block_s,
-                               void* stream) {
-  (void)skip;
-  (void)C;
-  return launch<false>(words, qb, ql, meta_i, meta_f, qw_b, qw_l, essential,
-                       prefix_beta, nullptr, th_lo, alpha, beta, gamma, out,
-                       B, 1, nq, wp, p, tile_size, block_s, stream);
-}
 
 // [B, C, Nq, ...] raw rows -> [B, C, 6, S]; skip [B, C] nonzero = zero rows.
 int guided_score_chunk_q_launch(const int* words, const uint8_t* qb,

@@ -37,17 +37,26 @@ run is a strictly increasing sequence of distinct slots followed by -1
 padding. The kernel relies on both (each (term, slot) gets at most one
 posting; a run ends at its first -1).
 
-Bound on an H100 SXM (3.35 TB/s): memory-bound. The padded inputs are
-``12*Nq*P`` bytes per live (query, tile) and the output ``20*S`` bytes; at
-Nq = 16, P = S = 2048 that is about 0.43 MB, 0.13 us. A run is read only
-up to its first padding entry, so the bytes the work needs are 12 per
-valid posting plus the output; ``chip_smoke.py`` computes that bound from
-each run's data. The design stores each posting straight into shared
-memory (no atomics: one posting per (term, slot); the TPU's one-hot
-matrix product is not needed), keeps the dense rows out of device
-memory, and writes each output element once. A skipped tile costs one
-flag read and its zero rows. The q8 kernels' design and bound are in
-``csrc/guided_score_q.cu``.
+Bound on an H100 SXM (3.35 TB/s). The padded inputs are ``12*Nq*P``
+bytes per live (query, tile) and the output ``20*S`` bytes; at Nq = 16,
+P = S = 2048 that is about 0.43 MB, 0.13 us. A run is read only up to its
+first padding entry, so the bytes the work needs are 12 per valid posting
+plus the output; ``chip_smoke.py`` computes that bound from each run's
+data. Both designs store each posting straight into shared memory (one
+posting per (term, slot); the TPU's one-hot matrix product is not
+needed), keep the dense rows out of device memory, and write each output
+element once.
+
+  - The chunk kernels (``csrc/guided_score.cu``, ``guided_score_q.cu``):
+    blocks of ``BLOCK_S`` slots, the terms one after the other with block
+    barriers. A skipped tile costs one flag read and its zero rows.
+  - The tile kernels (``csrc/guided_score_tile.cu``, both indexes) are
+    bound by latency at the main path's sizes (about 7 postings per run):
+    blocks of ``tile_lane_width`` slots (128: 256 blocks at a batch of 16
+    and S = 2048), a warp per run with no block barrier in the term loop,
+    a presence bitmask per slot in place of zeroed dense rows, and the run
+    scalars in shared memory. The design and its reasons are in the
+    source's header.
 """
 from __future__ import annotations
 
@@ -58,9 +67,33 @@ import torch
 
 N_ROWS = 5          # Global, Local, Rank, eval mask, rank mask
 N_ROWS_Q = 6        # the same, then postings per slot
-# Doc slots per thread block: 16 terms x 512 slots x 2 weights x 4 B = 64 KB
-# of shared memory; the launcher halves it when more terms would not fit.
+# Doc slots per thread block of the chunk kernels: 16 terms x 512 slots x 2
+# weights x 4 B = 64 KB of shared memory; the launcher halves it when more
+# terms would not fit.
 BLOCK_S = 512
+# Doc slots per thread block (lane width) of the tile kernels: 2048 / 128 =
+# 16 lane blocks per query, 256 blocks at a batch of 16 on the 132 SMs.
+TILE_LANE_WIDTH = 128
+SMEM_OPTIN_BYTES = 232_448      # H100: the shared memory a block may opt in to
+
+
+def tile_smem_bytes(nq: int, width: int, q8: bool) -> int:
+    """Shared memory of one tile-kernel block (``guided_score_tile.cu``):
+    dense weight rows ``[2, Nq, width]``, presence masks ``[ceil(Nq / 32),
+    width]`` and the essential bitmask, then per term 2 scalars (fp32) or
+    11 (q8), 4 bytes each."""
+    nw = -(-nq // 32)
+    return 4 * (2 * nq * width + nw * width + nw + (11 if q8 else 2) * nq)
+
+
+def tile_lane_width(nq: int, tile_size: int) -> int:
+    """Doc slots per block of the tile kernels: ``TILE_LANE_WIDTH``, halved
+    (not below 32) while a q8 block of ``nq`` terms would not fit in
+    ``SMEM_OPTIN_BYTES``, and no wider than the tile."""
+    width = TILE_LANE_WIDTH
+    while width > 32 and tile_smem_bytes(nq, width, True) > SMEM_OPTIN_BYTES:
+        width //= 2
+    return min(width, tile_size)
 
 
 def _scalar(x) -> float:
@@ -212,18 +245,18 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _call(source: str, fn_name: str, inputs, coefs, out,
-          sizes) -> torch.Tensor:
+def _call(source: str, fn_name: str, inputs, coefs, out, sizes,
+          block_s: int) -> torch.Tensor:
     """Launch ``fn_name`` of ``source``'s library on the current stream:
     the input pointers (None for an absent one), the float coefficients,
-    the output pointer, the sizes, ``BLOCK_S`` and the stream. Raises when
-    the launcher returns a CUDA error."""
+    the output pointer, the sizes, the doc slots per block and the stream.
+    Raises when the launcher returns a CUDA error."""
     from . import build
     if out.numel() == 0:
         return out
     build.launch(source, fn_name, out.device,
                  *(ctypes.c_void_p(None) if t is None else t
-                   for t in inputs), *coefs, out, *sizes, BLOCK_S)
+                   for t in inputs), *coefs, out, *sizes, block_s)
     return out
 
 
@@ -246,9 +279,13 @@ def _launch(fn_name: str, offs, wb, wl, essential, prefix_beta, skip, th_lo,
         raise ValueError(f"tile_size={tile_size} must be >= 1")
     out = torch.empty(offs.shape[:-2] + (N_ROWS, tile_size),
                       dtype=torch.float32, device=dev)
-    return _call("guided_score.cu", fn_name,
+    source, block_s = (("guided_score.cu", BLOCK_S) if skip is not None else
+                       ("guided_score_tile.cu",
+                        tile_lane_width(nq, tile_size)))
+    return _call(source, fn_name,
                  (offs, wb, wl, essential, prefix_beta, skip, th_lo),
-                 (alpha, beta, gamma), out, (b, c, nq, p, tile_size))
+                 (alpha, beta, gamma), out, (b, c, nq, p, tile_size),
+                 block_s)
 
 
 def _device_of(t: torch.Tensor) -> str:
@@ -320,10 +357,14 @@ def _launch_q(fn_name: str, words, qb_row, ql_row, meta_i, meta_f, qw_b,
         raise ValueError(f"tile_size={tile_size} must be >= 1")
     out = torch.empty(lead + (N_ROWS_Q, tile_size), dtype=torch.float32,
                       device=dev)
-    return _call("guided_score_q.cu", fn_name,
+    source, block_s = (("guided_score_q.cu", BLOCK_S) if skip is not None
+                       else ("guided_score_tile.cu",
+                             tile_lane_width(nq, tile_size)))
+    return _call(source, fn_name,
                  (words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l,
                   essential, prefix_beta, skip, th_lo),
-                 (alpha, beta, gamma), out, (b, c, nq, wp, p, tile_size))
+                 (alpha, beta, gamma), out, (b, c, nq, wp, p, tile_size),
+                 block_s)
 
 
 def guided_score_tile_q(words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l,

@@ -34,12 +34,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(rng, lead, nq, p, tile_size):
+def _inputs(rng, lead, nq, p, tile_size, full_every=0):
+    """Runs of a random length up to min(P, S); with ``full_every``, every
+    such run (counted over rows and terms) holds min(P, S) postings."""
     n = int(np.prod(lead))
     offs = np.full((n, nq, p), -1, np.int32)
     for r in range(n):
         for i in range(nq):
             cnt = int(rng.integers(0, min(p, tile_size) + 1))
+            if full_every and (r * nq + i) % full_every == 0:
+                cnt = min(p, tile_size)
             offs[r, i, :cnt] = np.sort(rng.choice(tile_size, cnt,
                                                   replace=False))
     wb = (rng.random(offs.shape) * 3).astype(np.float32) * (offs >= 0)
@@ -51,15 +55,30 @@ def _inputs(rng, lead, nq, p, tile_size):
             for a, s in zip((offs, wb, wl, ess, pb), shapes)]
 
 
-@pytest.mark.parametrize("b,c,nq,p,s", [
-    (3, 4, 5, 96, 384), (2, 3, 16, 2048, 2048), (2, 2, 64, 128, 1024),
-    (4, 2, 7, 300, 1000)])
-def test_kernels_equal_plain_on_card(cuda, b, c, nq, p, s):
+# b, c, nq, p, s, full_every. After the first four, the tile kernels'
+# edges: two presence-mask words (Nq 33, 64), runs longer than 32 postings
+# that cross lane blocks, S not a multiple of the lane width or below it,
+# and runs of exactly P (P = S: every slot; P = 40 over 2048 slots).
+KERNEL_CASES = [
+    (3, 4, 5, 96, 384, 0), (2, 3, 16, 2048, 2048, 0),
+    (2, 2, 64, 128, 1024, 0), (4, 2, 7, 300, 1000, 0),
+    (2, 2, 33, 200, 2000, 0), (3, 2, 64, 512, 1500, 0),
+    (2, 2, 16, 2048, 2048, 3), (2, 2, 64, 40, 2048, 4),
+    (2, 1, 5, 40, 100, 0)]
+
+
+@pytest.mark.parametrize(
+    "b,c,nq,p,s,full_every", KERNEL_CASES,
+    ids=["-".join(map(str, case[:5])) + (f"-full{case[5]}" if case[5] else "")
+         for case in KERNEL_CASES])
+def test_kernels_equal_plain_on_card(cuda, b, c, nq, p, s, full_every):
     """Masks identical and scores bit-equal: the kernel rounds every
     product and sum as the plain version does (no contracted FMAs)."""
     rng = np.random.default_rng(b * 100 + nq)
-    offs, wb, wl, ess, pb = (t.to(cuda) for t in _inputs(rng, (b, c), nq,
-                                                          p, s))
+    offs, wb, wl, ess, pb = (t.to(cuda) for t in _inputs(
+        rng, (b, c), nq, p, s, full_every))
+    if full_every:
+        assert bool(((offs >= 0).sum(-1) == p).any())
     skip = torch.from_numpy((rng.random((b, c)) < 0.4).astype(np.int32)).to(
         cuda)
     th = torch.from_numpy(rng.random(b).astype(np.float32) * 3).to(cuda)
@@ -131,14 +150,14 @@ def test_search_on_card_matches_cpu(cuda):
 WIDTH_MIN = {1: 1, 2: 2, 4: 4, 8: 16, 16: 256}
 
 
-def _q8_rows(rng, lead, nq, p, s):
+def _q8_rows(rng, lead, nq, p, s, tile=0):
     """Raw q8 rows [*lead, ...] of real encoded runs (``encode_runs``, one
     term per (row, term) of a one-tile index of S >= 384 docs), fetched by
     ``gather_tile_q_raw`` at ``pad_len = p``. Run r has gap width
     ``list(WIDTH_MIN)[r % 5]`` (its first gap sets it, the others are no
     larger); the first three runs hold 0, 1 and min(P, S) postings. Past a
     run's end the rows hold the next run's words and codes, as on the main
-    path."""
+    path. ``tile=1`` fetches the sentinel past the index's one tile."""
     n = int(np.prod(lead)) * nq
     locs = []
     for r in range(n):
@@ -166,15 +185,18 @@ def _q8_rows(rng, lead, nq, p, s):
         device="cpu")
     terms = torch.arange(n, dtype=torch.int32).reshape(lead + (nq,))
     return gather_tile_q_raw(index.gather_arrays(), terms,
-                             torch.zeros(lead, dtype=torch.int32), pad_len=p)
+                             torch.full(lead, tile, dtype=torch.int32),
+                             pad_len=p)
 
 
 @pytest.mark.parametrize("b,c,nq,p,s", [
     (3, 4, 5, 96, 384), (2, 3, 16, 2048, 2048), (2, 2, 64, 128, 1024),
-    (4, 2, 7, 300, 1000)])
+    (4, 2, 7, 300, 1000), (2, 2, 33, 200, 2000), (3, 2, 64, 512, 1500)])
 def test_q8_kernels_equal_plain_on_card(cuda, b, c, nq, p, s):
     """Masks and posting counts identical, scores bit-equal, on runs of
-    every gap width, empty and full runs and padded terms (qw = 0)."""
+    every gap width, empty and full runs and padded terms (qw = 0); the
+    last two cases need two presence-mask words, and their S is not a
+    multiple of the tile kernel's lane width."""
     rng = np.random.default_rng(b * 100 + nq)
     rows = [t.to(cuda) for t in _q8_rows(rng, (b, c), nq, p, s)]
     assert set(rows[3][..., 2, :].unique().tolist()) == set(WIDTH_MIN)
@@ -200,6 +222,24 @@ def test_q8_kernels_equal_plain_on_card(cuda, b, c, nq, p, s):
                                gs.guided_score_tile_q_plain(*targs,
                                                             tile_size=s),
                                rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+def test_q8_tile_sentinel_is_zero_on_card(cuda):
+    """The chunk schedule's sentinel tile (the id past the last tile: every
+    run empty) scores zero rows, as the plain version does."""
+    rng = np.random.default_rng(5)
+    rows = [t.to(cuda) for t in _q8_rows(rng, (2,), 8, 64, 512, tile=1)]
+    assert not bool(rows[3][:, 0].any())                 # cnt = 0
+    qw_b, qw_l = (torch.ones(2, 8, device=cuda) for _ in range(2))
+    ess = torch.ones(2, 8, device=cuda)
+    pb = torch.zeros(2, 8, device=cuda)
+    args = (*rows, qw_b, qw_l, ess, pb, torch.zeros(2, device=cuda), 1.0,
+            0.3, 0.05)
+    out = gs.guided_score_tile_q(*args, tile_size=512)
+    torch.testing.assert_close(out, gs.guided_score_tile_q_plain(
+        *args, tile_size=512), rtol=0, atol=0)
+    assert not bool(out.any())
     torch.cuda.synchronize()
 
 
@@ -229,6 +269,26 @@ def test_q8_search_on_card_matches_cpu(cuda):
                     "docs_survived", "chunks_dispatched"):
             np.testing.assert_array_equal(on_card.stats[key],
                                           on_cpu.stats[key])
+
+
+def test_chunked_search_runs_the_tile_kernels_on_card(cuda):
+    """A "chunked" search scores through the tile kernel of its index
+    alone: the tile wrapper's count moves, the chunk wrappers' do not."""
+    corpus = make_corpus("splade_like", n_docs=4096, n_terms=1024,
+                         n_queries=8, n_q_terms=8, avg_doc_terms=16, seed=3)
+    merged = corpus.merged("scaled")
+    q = dict(terms=corpus.queries, weights_b=corpus.q_weights_b,
+             weights_l=corpus.q_weights_l)
+    for index, kernel in ((build_index(merged, tile_size=512),
+                           gs.guided_score_tile),
+                          (compress_index(merged, tile_size=512),
+                           gs.guided_score_tile_q)):
+        gs.reset_launches()
+        Retriever.open(index, twolevel.fast(), engine="kernel",
+                       traversal="chunked").search(**q, k=10)
+        counts = {fn.__name__: fn.launches for fn in gs.KERNELS}
+        assert counts[kernel.__name__] > 0
+        assert sum(counts.values()) == counts[kernel.__name__], counts
 
 
 # b, h, hkv, sq, skv, d, causal, kv_offset, and the route of a bfloat16

@@ -150,3 +150,26 @@ def test_cpu_tensors_run_the_plain_version_uncounted():
     with pytest.raises(ValueError, match="device"):
         gs.guided_score_tile(_t(offs[None]).to("meta"), None, None, None,
                              None, th, 1.0, 0.3, 0.05, tile_size=128)
+
+
+@pytest.mark.parametrize("nq,tile_size", [
+    (1, 64), (5, 100), (16, 2048), (33, 2000), (64, 1500), (64, 2048),
+    (16, 1000), (7, 384)])
+def test_tile_lane_width_covers_and_fits(nq, tile_size):
+    """The tile kernels' lane blocks cover every slot once, and a block's
+    shared memory (fp32 and q8) fits the H100's opt-in limit at Nq <= 64."""
+    width = gs.tile_lane_width(nq, tile_size)
+    n_blocks = -(-tile_size // width)
+    assert 1 <= width <= tile_size
+    assert (n_blocks - 1) * width < tile_size <= n_blocks * width
+    for q8 in (False, True):
+        assert gs.tile_smem_bytes(nq, width, q8) <= 227 * 1024
+
+
+def test_tile_grid_fills_the_card_on_the_main_path():
+    """At the main path's [B=16, Nq=16] tiles of S = 2048 slots the grid
+    has at least one block per SM of the H100 (132), where the chunk
+    kernels' BLOCK_S would give 64."""
+    width = gs.tile_lane_width(16, 2048)
+    assert 16 * -(-2048 // width) >= 132
+    assert 16 * -(-2048 // gs.BLOCK_S) < 132
