@@ -14,12 +14,18 @@ Phases, one JSON line each:
             per doc, ratio to the fp32 bytes; tile pointers and exact
             maxima equal to the fp32 index's
   kernels   each kernel (fp32: guided_score_chunk/_tile; q8:
-            guided_score_chunk_q/_tile_q) against its plain PyTorch version
+            guided_score_chunk_q/_tile_q, all four in
+            ``guided_score_tile.cu``) against its plain PyTorch version
             on real main-path inputs and odd shapes, bit for bit; times
-            beside the card's bound; each tile kernel also beside the chunk
-            launcher on the same tile (``prev_ms``: the design the tile
-            kernels had before ``guided_score_tile.cu``) and that launcher
-            writing only the zero rows of a skipped tile (``floor_ms``)
+            beside the card's bound and, on the same inputs in turns, the
+            earlier design (``prev_ms``: the chunk template of
+            ``guided_score.cu`` / ``guided_score_q.cu``, called by source
+            name; for a tile kernel, on the tile as a chunk of one with
+            skip 0) and a launch that only writes zero rows (``floor_ms``:
+            for a chunk kernel, the new launcher with every skip flag set;
+            for a tile kernel, the earlier template with skip 1); the
+            chunk kernels also at each lane width of CHUNK_WIDTHS
+            (``lane_width_ms``)
   serve     per index, Retriever.search on 4 batches of 16 queries at k=10
             and k=100 through the chunk kernel (traversal="chunked_fused")
             and the tile kernel (traversal="chunked"), with launch counts;
@@ -31,6 +37,8 @@ Phases, one JSON line each:
   profile_tile_ab  the tile path at k=10 with the tile kernels' earlier
             design patched in, in turns with the kernel (earlier, kernel,
             kernel, earlier): device busy of the same batch on one card
+  profile_chunk_ab  the same for the chunk path (chunked_fused) at k=10
+            with the earlier chunk template patched in
   rank_safe per index, a rank-safe chunked_fused run against an exhaustive
             top-k computed on the card (q8: over the dequantized postings)
   lm        granite-3-2b at full width (fp32 master, bf16 compute):
@@ -363,13 +371,40 @@ def skip_flags(b: int, skip: int, device) -> torch.Tensor:
     return torch.full((b, 1), skip, dtype=torch.int32, device=device)
 
 
+# chunk launcher -> the source of its earlier template
+EARLIER_CHUNK_SOURCE = {"guided_score_chunk_launch": "guided_score.cu",
+                        "guided_score_chunk_q_launch": "guided_score_q.cu"}
+
+
+@contextlib.contextmanager
+def earlier_chunk_template():
+    """Within the block the chunk wrappers launch the earlier chunk
+    template (``guided_score.cu`` / ``guided_score_q.cu``, blocks of
+    ``BLOCK_S`` slots, terms one after the other), called by source name,
+    in place of ``guided_score_tile.cu``. For comparisons in one run on one
+    card."""
+    from repro_torch.kernels import guided_score as gs
+    call = gs._call
+
+    def earlier(source, fn_name, inputs, coefs, out, sizes, block_s):
+        if fn_name in EARLIER_CHUNK_SOURCE:
+            source, block_s = EARLIER_CHUNK_SOURCE[fn_name], gs.BLOCK_S
+        return call(source, fn_name, inputs, coefs, out, sizes, block_s)
+    gs._call = earlier
+    try:
+        yield
+    finally:
+        gs._call = call
+
+
 @contextlib.contextmanager
 def tile_kernels_as_chunk(skip: int):
-    """Within the block the tile wrappers run each tile through the chunk
-    launcher, as a chunk of one tile with its skip flag set to ``skip``:
-    with 0 the design the tile kernels had before ``guided_score_tile.cu``
-    (the chunk template plus one flag read), with 1 a launch that only
-    writes the zero rows. For comparisons in one run on one card."""
+    """Within the block the tile wrappers run each tile through the earlier
+    chunk template (``earlier_chunk_template``), as a chunk of one tile
+    with its skip flag set to ``skip``: with 0 the design the tile kernels
+    had before ``guided_score_tile.cu`` (the chunk template plus one flag
+    read), with 1 a launch that only writes the zero rows. For comparisons
+    in one run on one card."""
     from repro_torch.kernels import guided_score as gs
     launch, launch_q = gs._launch, gs._launch_q
 
@@ -387,15 +422,36 @@ def tile_kernels_as_chunk(skip: int):
     gs._launch = redirect(launch, "guided_score_chunk_launch")
     gs._launch_q = redirect(launch_q, "guided_score_chunk_q_launch")
     try:
-        yield
+        with earlier_chunk_template():
+            yield
     finally:
         gs._launch, gs._launch_q = launch, launch_q
 
 
-def through_chunk_launcher(fn, skip: int):
-    """``fn()`` (a tile wrapper's call) under ``tile_kernels_as_chunk``."""
-    with tile_kernels_as_chunk(skip):
+def called_within(context, fn, *args):
+    """``fn()`` (a wrapper's call) within ``context(*args)``: a kernel's
+    earlier design or another lane width, for comparisons in one run."""
+    with context(*args):
         return fn()
+
+
+@contextlib.contextmanager
+def chunk_lane_width_fixed(width: int):
+    """Within the block the chunk wrappers launch at lane width ``width``
+    (capped at the tile) in place of ``chunk_lane_width``'s choice."""
+    from repro_torch.kernels import guided_score as gs
+    choose = gs.chunk_lane_width
+    gs.chunk_lane_width = lambda nq, tile_size, n_tiles: min(width,
+                                                             tile_size)
+    try:
+        yield
+    finally:
+        gs.chunk_lane_width = choose
+
+
+# chunk lane widths timed beside chunk_lane_width's choice (the kernels
+# phase's ``lane_width_ms``)
+CHUNK_WIDTHS = (128, 256, 512)
 
 
 def phase_kernels(indexes, corpus, dev):
@@ -418,8 +474,19 @@ def phase_kernels(indexes, corpus, dev):
             main[name] = (functools.partial(kern, *args, tile_size=S),
                           functools.partial(plain, *args, tile_size=S),
                           bnd(x, S))
+        # K1/K3: the earlier template by source name; the new launcher with
+        # every tile skipped. K2/K4: the earlier template on the tile as a
+        # chunk of one, skip 0 and skip 1.
+        prev_floor[chunk_name] = (
+            functools.partial(called_within, earlier_chunk_template,
+                              main[chunk_name][0]),
+            functools.partial(getattr(gs, chunk_name),
+                              *kernel_args(ctx, x1._replace(
+                                  skip=torch.ones_like(x1.skip)), True),
+                              tile_size=S))
         prev_floor[tile_name] = tuple(
-            functools.partial(through_chunk_launcher, main[tile_name][0], flag)
+            functools.partial(called_within, tile_kernels_as_chunk,
+                              main[tile_name][0], flag)
             for flag in (0, 1))
     errs = {name: compare(f"{name} main", kern(), plain())
             for name, (kern, plain, _) in main.items()}
@@ -435,7 +502,14 @@ def phase_kernels(indexes, corpus, dev):
     # edges: two presence-mask words (Nq 33, 64), runs longer than 32
     # postings crossing lane blocks, S not a multiple of the lane width or
     # below it, runs of exactly P (fp32: every ``full``-th run; q8: the
-    # third run of each case); the q8 sentinel tile is the last row.
+    # third run of each case). Then chunks large enough to take a wider
+    # chunk lane width (``chunk_lane_width``, 512 or 256 here): mixed skips
+    # over tiles of several lane blocks, a fully skipped chunk, Nq 33 and
+    # 64, runs of exactly P = 96 and 2048 (longer than 64 postings), S not a
+    # multiple of the chunk lane width and S below it (the width is then
+    # S); in the q8 rows each query's C tiles hold runs of every gap width
+    # and their own zero/scale pairs under the one query's weights. The q8
+    # sentinel tile is the last row.
     rng = np.random.default_rng(1234)
     sweep = []
     for (b, c, nq, p, s, skip_mode, full) in [
@@ -445,7 +519,13 @@ def phase_kernels(indexes, corpus, dev):
             (2, 2, 33, 200, 2000, "mixed", 0),
             (3, 2, 64, 512, 1500, "none", 0),
             (2, 2, 16, 2048, 2048, "none", 3),
-            (2, 2, 64, 40, 2048, "none", 4), (2, 1, 5, 40, 100, "none", 0)]:
+            (2, 2, 64, 40, 2048, "none", 4), (2, 1, 5, 40, 100, "none", 0),
+            (9, 8, 16, 64, 2048, "mixed", 0), (16, 8, 16, 64, 2048, "all", 0),
+            (9, 8, 33, 200, 2000, "mixed", 0),
+            (9, 8, 64, 512, 1500, "mixed", 0),
+            (9, 8, 16, 96, 2048, "mixed", 2),
+            (9, 8, 16, 2048, 2048, "mixed", 3),
+            (24, 12, 16, 96, 384, "mixed", 0)]:
         skip = {"all": np.ones((b, c)), "none": np.zeros((b, c)),
                 "mixed": rng.random((b, c)) < 0.4}[skip_mode]
         skip = torch.from_numpy(skip.astype(np.int32)).to(dev)
@@ -454,7 +534,8 @@ def phase_kernels(indexes, corpus, dev):
         offs, wb, wl, ess, pb = random_inputs(rng, (b, c), nq, p, s, dev,
                                               full)
         row = {"shape": [b, c, nq, p, s], "skip": skip_mode,
-               "lane_width": gs.tile_lane_width(nq, s)}
+               "lane_width": gs.tile_lane_width(nq, s),
+               "chunk_lane_width": gs.chunk_lane_width(nq, s, b * c)}
         if full:
             row["full_runs"] = int(((offs >= 0).sum(-1) == p).sum())
             require(row["full_runs"] > 0, "sweep: no run of exactly P")
@@ -511,11 +592,27 @@ def phase_kernels(indexes, corpus, dev):
         t_floor = timings(floor)["ms"]
         t_kern.append(timings(main[name][0])["ms"])
         t_prev.append(timings(prev)["ms"])
+        shape = main[name][2]["shape"]
+        if "chunk" in name:
+            # the chunk kernel at each lane width, bit-equal, in turns
+            at = {w: functools.partial(called_within, chunk_lane_width_fixed,
+                                       main[name][0], w)
+                  for w in CHUNK_WIDTHS}
+            for w, fn in at.items():
+                compare(f"{name} main at lane width {w}", fn(),
+                        main[name][1]())
+            runs = {w: [] for w in CHUNK_WIDTHS}
+            for w in CHUNK_WIDTHS + CHUNK_WIDTHS[::-1]:
+                runs[w].append(timings(at[w])["ms"])
+            result[name]["lane_width_ms"] = {
+                str(w): statistics.mean(v) for w, v in runs.items()}
         result[name].update(
             ms=statistics.mean(t_kern), ms_runs=t_kern,
             prev_ms=statistics.mean(t_prev), prev_ms_runs=t_prev,
             floor_ms=t_floor,
-            lane_width=gs.tile_lane_width(main[name][2]["shape"][-2], S))
+            lane_width=(gs.chunk_lane_width(shape[-2], S, math.prod(
+                shape[:2])) if "chunk" in name
+                else gs.tile_lane_width(shape[-2], S)))
     emit("kernels", main=result, sweep=sweep,
          tolerance="masks and posting counts identical; rows 0-2 bit-equal")
     return result
@@ -718,17 +815,21 @@ def phase_serve(label, index, corpus, dev):
          **{name: [profile_search(r, corpus, k) for k in PROFILE_KS[label]]
             for name, r in paths})
 
-    # The tile path at k=10 with the tile kernels' earlier design patched
-    # in, in turns with the kernel: earlier, kernel, kernel, earlier.
-    ab = []
-    for design in ("earlier", "kernel", "kernel", "earlier"):
-        with (tile_kernels_as_chunk(0) if design == "earlier"
-              else contextlib.nullcontext()):
-            prof = profile_search(paths[1][1], corpus, KS[0])
-        ab.append({"design": design, **{f: prof[f] for f in (
-            "wall_ms_profiled", "device_busy_ms", "device_idle_share",
-            "device_ops", "port_kernels")}})
-    emit("profile_tile_ab", index=label, path=tile_name, k=KS[0], runs=ab)
+    # Each path at k=10 with its kernel's earlier design patched in, in
+    # turns with the kernel: earlier, kernel, kernel, earlier.
+    for phase, (name, r), earlier in (
+            ("profile_chunk_ab", paths[0], earlier_chunk_template),
+            ("profile_tile_ab", paths[1],
+             functools.partial(tile_kernels_as_chunk, 0))):
+        ab = []
+        for design in ("earlier", "kernel", "kernel", "earlier"):
+            with (earlier() if design == "earlier"
+                  else contextlib.nullcontext()):
+                prof = profile_search(r, corpus, KS[0])
+            ab.append({"design": design, **{f: prof[f] for f in (
+                "wall_ms_profiled", "device_busy_ms", "device_idle_share",
+                "device_ops", "port_kernels")}})
+        emit(phase, index=label, path=name, k=KS[0], runs=ab)
     return launches, served
 
 
@@ -1706,9 +1807,9 @@ def main() -> int:
             fa_routes[way] += n
 
     src = "src/repro_torch/kernels/csrc/"
-    where = {"guided_score_chunk": ("guided_score.cu", 123),
+    where = {"guided_score_chunk": ("guided_score_tile.cu", 123),
              "guided_score_tile": ("guided_score_tile.cu", 36),
-             "guided_score_chunk_q": ("guided_score_q.cu", 413),
+             "guided_score_chunk_q": ("guided_score_tile.cu", 413),
              "guided_score_tile_q": ("guided_score_tile.cu", 298)}
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": src + cu,

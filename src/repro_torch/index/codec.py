@@ -24,7 +24,7 @@ Encoders are host-side numpy (vectorized over all runs at once, no
 per-run Python loop); the numpy decoders here are the reference the
 round-trip tests pin, while the query-path torch decoder lives in
 ``repro_torch.index.compressed.gather_tile_q`` and the in-kernel one in
-``repro_torch/kernels/csrc/guided_score_q.cu``. A numpy copy of the JAX
+``repro_torch/kernels/csrc/guided_score_tile.cu``. A numpy copy of the JAX
 package's ``repro/index/codec.py``: its outputs are byte-equal to it,
 including the fp16 scale that goes subnormal for run maxima below about
 1e-2.

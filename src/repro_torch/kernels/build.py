@@ -52,16 +52,19 @@ _GUIDED_ARGS = [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _P,
 _GUIDED_Q_ARGS = [_P] * 11 + [_F, _F, _F, _P] + [_I] * 7 + [_P]
 _L = ctypes.c_longlong
 SIGNATURES = {
+    # the earlier chunk template, launched only by chip_smoke.py
     "guided_score.cu": {
         "guided_score_chunk_launch": _GUIDED_ARGS,
-        "error_string": [_I],
     },
     "guided_score_q.cu": {
         "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
     },
     "guided_score_tile.cu": {
         "guided_score_tile_launch": _GUIDED_ARGS,
+        "guided_score_chunk_launch": _GUIDED_ARGS,
         "guided_score_tile_q_launch": _GUIDED_Q_ARGS,
+        "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
+        "error_string": [_I],
     },
     # table, idx, w, out, dtype, n_bags, n_fields, bag_len, vocab, d, stream
     "embedding_bag.cu": {
@@ -149,7 +152,7 @@ def build_all() -> dict:
     return build_log
 
 
-def load(source: str = "guided_score.cu") -> ctypes.CDLL:
+def load(source: str = "guided_score_tile.cu") -> ctypes.CDLL:
     """The loaded library of ``source``, built on first use."""
     if source not in _libs:
         build_all()

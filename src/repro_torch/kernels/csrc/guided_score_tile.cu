@@ -1,27 +1,43 @@
-// Guided tile scoring for Hopper (sm_90a), one tile per query, on both
-// indexes: the fp32 form (5 output rows) and the q8 form, which decodes the
-// bit-packed gaps and int8 impacts in the kernel and adds a 6th row, the
-// valid postings per doc slot.
+// Guided scoring for Hopper (sm_90a) on both indexes, one tile per query
+// or a chunk of C tiles per query with a per-tile skip flag: the fp32 form
+// (5 output rows) and the q8 form, which decodes the bit-packed gaps and
+// int8 impacts in the kernel and adds a 6th row, the valid postings per
+// doc slot.
 //
 // Replaces the TPU kernels repro/kernels/guided_score.py::guided_score_tile
-// (_kernel) and ::guided_score_tile_q (_kernel_q + _decode_rows). The chunk
-// forms stay in guided_score.cu and guided_score_q.cu.
+// (_kernel), ::guided_score_chunk (_chunk_kernel), ::guided_score_tile_q
+// (_kernel_q + _decode_rows) and ::guided_score_chunk_q (_chunk_kernel_q +
+// _decode_rows). One kernel per index serves both forms: a tile is a chunk
+// of one tile with no skip flag.
 //
-// Bound: latency, not bytes. At the main path's shape (16 queries x 16
-// runs of about 7 postings over S = 2048 slots) the work needs 0.7-0.8 MB,
-// 0.2 us at the card's memory rate: less than a launch costs. The time
+// Bound: latency, not bytes. At the main path's shapes (16 queries x 16
+// runs of about 7 postings over S = 2048 slots, per tile) a tile's work
+// needs about 40 KB, most of it the output rows; a chunk of 8 tiles per
+// query (128 tiles) needs 5.4-6.4 MB, 1.6-1.9 us at the card's memory rate,
+// less than a launch and one dependent round trip cost together. The time
 // goes to dependent memory round trips and block barriers on each block's
-// critical path, and to SMs the grid leaves idle. So a block's path is
-// about two round trips and two barriers long:
-//   * Grid (lane blocks of block_s slots, B queries), kThreads threads per
-//     block; block_s comes from guided_score.tile_lane_width (128 up to
-//     Nq = 64: 256 blocks of about 18 KB of shared memory at [16, 16, 2048],
-//     two resident per SM).
+// critical path, and to waves of blocks. So a block's path is about two
+// round trips and two barriers long (three round trips in the chunk form,
+// which reads its skip flag first), and a grid runs in one wave (the main
+// path's tiles) or about two (its chunk):
+//   * Grid (lane blocks of block_s slots, C tiles, B queries), kThreads
+//     threads per block; tile = b * C + c. block_s comes from
+//     guided_score.tile_lane_width for one tile per query (128 up to
+//     Nq = 64: 256 blocks of about 18 KB of shared memory at [16, 16,
+//     2048]) and from guided_score.chunk_lane_width for a chunk, which
+//     widens the lane block while the grid keeps at least two blocks per
+//     SM (512 at [16, 8, 16] x 2048: 512 blocks of about 67 KB, two
+//     resident per SM by registers, so two waves; 128 would give 2048
+//     blocks, eight waves). A run of ~7 postings fits one step whatever
+//     the width, and fewer lane blocks read each run.
+//   * Chunk form: the block reads its tile's skip flag before any other
+//     load; a skipped tile's block writes its zero rows and returns.
 //   * Prologue: one coalesced pass puts every run's scalars in shared
 //     memory (essential as flags and as a bitmask, prefix_beta; q8 also
 //     cnt, first, width, the zero/scale pairs and the query weights) and
 //     zeroes the presence masks, then one barrier. Each warp issues its
-//     first run's first loads before that barrier, so they overlap it.
+//     first run's first loads, and every thread the query's th_lo, before
+//     that barrier, so they overlap it.
 //   * A warp per run: warp w takes terms w, w + kWarps, ... and walks a run
 //     32 postings per step, one per lane. A step's loads issue together:
 //     offsets and weights, or (q8) 32 packed words from the first its gaps
@@ -54,6 +70,9 @@
 //     loop, reading the run scalars from shared memory and adding a term's
 //     weights only where its bit is set, and writes the output rows once,
 //     coalesced.
+// Indexing: essential, prefix_beta, offs / wb / wl, words / qb / ql,
+// meta_i and meta_f are per tile (row0 = tile * Nq); qw_b / qw_l and th_lo
+// are per query; the output is [B, C, rows, S].
 //
 // Rounding: every product and sum is an explicit round-to-nearest
 // intrinsic and the library is built with -fmad=false. Skipping the add
@@ -62,7 +81,7 @@
 // when both operands are, so they never become -0.0. The dequantization
 // __fmul_rn(__fadd_rn(zero, __fmul_rn(scale, q)), qw) is the reference's.
 // Outputs equal the plain versions (guided_score_tile_plain,
-// guided_score_tile_q_plain) bit for bit.
+// guided_score_chunk_plain and their q8 twins) bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -135,7 +154,9 @@ struct Lane {
 };
 
 // Zero the presence masks; essential flags, their bitmask and prefix_beta
-// into shared memory. The caller takes the barrier.
+// into shared memory, by warps 0 .. ceil(nq / 32) - 1, each thread's two
+// loads issued before the ballot waits on one. The caller takes the
+// barrier.
 __device__ void prologue(const Lane& L, const float* ess_t,
                          const float* pb_t, int nq) {
   const int nw = (nq + 31) >> 5;
@@ -143,13 +164,24 @@ __device__ void prologue(const Lane& L, const float* ess_t,
   const int lane = threadIdx.x & 31;
   for (int i0 = (threadIdx.x >> 5) * 32; i0 < nq; i0 += kThreads) {
     const int i = i0 + lane;
-    const bool e = i < nq && ess_t[i] > 0.f;
+    const float ev = i < nq ? ess_t[i] : 0.f;
+    const float pv = i < nq ? pb_t[i] : 0.f;
+    const bool e = ev > 0.f;
     const unsigned bits = __ballot_sync(kAll, e);
     if (i < nq) {
       L.ess[i] = e;
-      L.pb[i] = pb_t[i];
+      L.pb[i] = pv;
     }
     if (lane == 0) L.emask[i0 >> 5] = bits;
+  }
+}
+
+// A skipped tile of a chunk: its zero rows for the lane block.
+template <int kRows>
+__device__ void write_zeros(const Lane& L, float* out_t, int tile_size) {
+  for (int s = threadIdx.x; s < L.width; s += kThreads) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) out_t[r * tile_size + s] = 0.f;
   }
 }
 
@@ -268,19 +300,32 @@ __device__ void run_f(const Lane& L, int i, const FirstF& first,
   }
 }
 
+// skip == nullptr: one tile per query (n_chunk = 1), nothing skipped.
 __global__ void __launch_bounds__(kThreads, 2)
 guided_score_tile_kernel(const int* __restrict__ offs,
                          const float* __restrict__ wb,
                          const float* __restrict__ wl,
                          const float* __restrict__ essential,
                          const float* __restrict__ prefix_beta,
+                         const int* __restrict__ skip,
                          const float* __restrict__ th_lo, float alpha,
                          float beta, float gamma, float* __restrict__ out,
-                         int nq, int p, int tile_size, int block_s) {
+                         int n_chunk, int nq, int p, int tile_size,
+                         int block_s) {
   extern __shared__ unsigned smem[];
-  const int b = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long tile = (long long)b * n_chunk + blockIdx.y;
   const Lane L(smem, nq, block_s, tile_size);
-  const long long row0 = (long long)b * nq;
+  float* out_t = out + tile * 5 * tile_size + L.base;
+  if (skip != nullptr && skip[tile] != 0) {
+    write_zeros<5>(L, out_t, tile_size);
+    return;
+  }
+  // th_lo issues with the first loads and reaches shared memory at the
+  // first barrier, not as a round trip after the second
+  __shared__ float th;
+  const float th_b = threadIdx.x == 0 ? th_lo[b] : 0.f;
+  const long long row0 = tile * nq;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -290,6 +335,7 @@ guided_score_tile_kernel(const int* __restrict__ offs,
     first = load_first_f(offs + r, wb + r, wl + r, p, lane);
   }
   prologue(L, essential + row0, prefix_beta + row0, nq);
+  if (threadIdx.x == 0) th = th_b;
   __syncthreads();
 
   for (int i = warp; i < nq; i += kWarps) {
@@ -298,9 +344,7 @@ guided_score_tile_kernel(const int* __restrict__ offs,
     run_f(L, i, first, offs + r, wb + r, wl + r, p, lane);
   }
   __syncthreads();
-  freeze_and_write<5>(L, nq, th_lo[b], alpha, beta, gamma,
-                      out + (long long)b * 5 * tile_size + L.base,
-                      tile_size);
+  freeze_and_write<5>(L, nq, th, alpha, beta, gamma, out_t, tile_size);
 }
 
 // ------------------------------------------------------------------ q8
@@ -436,6 +480,7 @@ __device__ void run_q(const Lane& L, int i, const RunQ& q,
   }
 }
 
+// skip == nullptr: one tile per query (n_chunk = 1), nothing skipped.
 __global__ void __launch_bounds__(kThreads, 2)
 guided_score_tile_q_kernel(const int* __restrict__ words,
                            const uint8_t* __restrict__ qb,
@@ -446,16 +491,29 @@ guided_score_tile_q_kernel(const int* __restrict__ words,
                            const float* __restrict__ qw_l,
                            const float* __restrict__ essential,
                            const float* __restrict__ prefix_beta,
+                           const int* __restrict__ skip,
                            const float* __restrict__ th_lo, float alpha,
                            float beta, float gamma, float* __restrict__ out,
-                           int nq, int wp, int p, int tile_size,
+                           int n_chunk, int nq, int wp, int p, int tile_size,
                            int block_s) {
   extern __shared__ unsigned smem[];
-  const int b = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long tile = (long long)b * n_chunk + blockIdx.y;
   const Lane L(smem, nq, block_s, tile_size);
+  float* out_t = out + tile * 6 * tile_size + L.base;
+  if (skip != nullptr && skip[tile] != 0) {
+    write_zeros<6>(L, out_t, tile_size);
+    return;
+  }
+  // th_lo issues with the first loads and reaches shared memory at the
+  // first barrier, not as a round trip after the second
+  __shared__ float th;
+  const float th_b = threadIdx.x == 0 ? th_lo[b] : 0.f;
   int* mi_s = static_cast<int*>(L.end(nq));          // [3][nq]
   float* mf_s = reinterpret_cast<float*>(mi_s + 3 * nq);  // [6][nq]
-  const long long row0 = (long long)b * nq;
+  const long long row0 = tile * nq;
+  const float* qwb_q = qw_b + (long long)b * nq;     // per query
+  const float* qwl_q = qw_l + (long long)b * nq;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -464,14 +522,22 @@ guided_score_tile_q_kernel(const int* __restrict__ words,
     first = load_first_q(words + (row0 + warp) * wp, qb + (row0 + warp) * p,
                          ql + (row0 + warp) * p, wp, p, lane);
   prologue(L, essential + row0, prefix_beta + row0, nq);
+  // cnt/first/width, the zero/scale pairs and the query weights, 9 words a
+  // term ([3][nq] ints, then [6][nq] floats), by the threads past the
+  // prologue's warps: one load and its store each (two from Nq = 54 up),
+  // so the copy costs one round trip beside the prologue's
   const int* mi = meta_i + row0 * 3;
   const float* mf = meta_f + row0 * 4;
-  for (int k = threadIdx.x; k < 3 * nq; k += kThreads) mi_s[k] = mi[k];
-  for (int k = threadIdx.x; k < 4 * nq; k += kThreads) mf_s[k] = mf[k];
-  for (int k = threadIdx.x; k < nq; k += kThreads) {
-    mf_s[4 * nq + k] = qw_b[row0 + k];
-    mf_s[5 * nq + k] = qw_l[row0 + k];
+  unsigned* meta_s = reinterpret_cast<unsigned*>(mi_s);
+  for (int k = (int)threadIdx.x - 32 * ((nq + 31) >> 5); k < 9 * nq;
+       k += kThreads) {
+    if (k < 0) continue;
+    meta_s[k] = k < 3 * nq ? static_cast<unsigned>(mi[k])
+              : k < 7 * nq ? __float_as_uint(mf[k - 3 * nq])
+              : k < 8 * nq ? __float_as_uint(qwb_q[k - 7 * nq])
+                           : __float_as_uint(qwl_q[k - 8 * nq]);
   }
+  if (threadIdx.x == 0) th = th_b;
   __syncthreads();
 
   for (int i = warp; i < nq; i += kWarps) {
@@ -486,9 +552,7 @@ guided_score_tile_q_kernel(const int* __restrict__ words,
           lane);
   }
   __syncthreads();
-  freeze_and_write<6>(L, nq, th_lo[b], alpha, beta, gamma,
-                      out + (long long)b * 6 * tile_size + L.base,
-                      tile_size);
+  freeze_and_write<6>(L, nq, th, alpha, beta, gamma, out_t, tile_size);
 }
 
 // The opt-in shared-memory limit is read once per process (one device); a
@@ -515,9 +579,53 @@ cudaError_t fit_smem(const void* kernel, size_t smem, size_t* attr) {
   return cudaSuccess;
 }
 
-bool bad_sizes(int B, int nq, int p, int tile_size, int block_s) {
-  return B < 1 || B > 65535 || nq < 1 || p < 1 || tile_size < 1 ||
-         block_s < 1;
+bool bad_sizes(int B, int C, int nq, int p, int tile_size, int block_s) {
+  return B < 1 || B > 65535 || C < 1 || C > 65535 || nq < 1 || p < 1 ||
+         tile_size < 1 || block_s < 1;
+}
+
+// One launcher per kernel, shared by its tile and chunk forms, so that the
+// kernel's shared-memory attribute is tracked once.
+int launch_f(const int* offs, const float* wb, const float* wl,
+             const float* essential, const float* prefix_beta,
+             const int* skip, const float* th_lo, float alpha, float beta,
+             float gamma, float* out, int B, int C, int nq, int p,
+             int tile_size, int block_s, void* stream) {
+  if (bad_sizes(B, C, nq, p, tile_size, block_s)) return cudaErrorInvalidValue;
+  static size_t attr = 0;
+  const size_t smem = smem_bytes(nq, block_s, false);
+  const cudaError_t err =
+      fit_smem((const void*)guided_score_tile_kernel, smem, &attr);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tile_size + block_s - 1) / block_s, C, B);
+  guided_score_tile_kernel<<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      offs, wb, wl, essential, prefix_beta, skip, th_lo, alpha, beta, gamma,
+      out, C, nq, p, tile_size, block_s);
+  return cudaGetLastError();
+}
+
+int launch_q(const int* words, const uint8_t* qb, const uint8_t* ql,
+             const int* meta_i, const float* meta_f, const float* qw_b,
+             const float* qw_l, const float* essential,
+             const float* prefix_beta, const int* skip, const float* th_lo,
+             float alpha, float beta, float gamma, float* out, int B, int C,
+             int nq, int wp, int p, int tile_size, int block_s,
+             void* stream) {
+  if (bad_sizes(B, C, nq, p, tile_size, block_s) || wp < 1)
+    return cudaErrorInvalidValue;
+  static size_t attr = 0;
+  const size_t smem = smem_bytes(nq, block_s, true);
+  const cudaError_t err =
+      fit_smem((const void*)guided_score_tile_q_kernel, smem, &attr);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((tile_size + block_s - 1) / block_s, C, B);
+  guided_score_tile_q_kernel<<<grid, kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      words, qb, ql, meta_i, meta_f, qw_b, qw_l, essential, prefix_beta,
+      skip, th_lo, alpha, beta, gamma, out, C, nq, wp, p, tile_size,
+      block_s);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -535,18 +643,23 @@ int guided_score_tile_launch(const int* offs, const float* wb,
                              void* stream) {
   (void)skip;
   (void)C;
-  if (bad_sizes(B, nq, p, tile_size, block_s)) return cudaErrorInvalidValue;
-  static size_t attr = 0;
-  const size_t smem = smem_bytes(nq, block_s, false);
-  const cudaError_t err =
-      fit_smem((const void*)guided_score_tile_kernel, smem, &attr);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((tile_size + block_s - 1) / block_s, B);
-  guided_score_tile_kernel<<<grid, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      offs, wb, wl, essential, prefix_beta, th_lo, alpha, beta, gamma, out,
-      nq, p, tile_size, block_s);
-  return cudaGetLastError();
+  return launch_f(offs, wb, wl, essential, prefix_beta, nullptr, th_lo,
+                  alpha, beta, gamma, out, B, 1, nq, p, tile_size, block_s,
+                  stream);
+}
+
+// [B, C, Nq, P] -> [B, C, 5, S]; skip [B, C] nonzero = zero rows;
+// block_s = guided_score.chunk_lane_width(Nq, S, B * C).
+int guided_score_chunk_launch(const int* offs, const float* wb,
+                              const float* wl, const float* essential,
+                              const float* prefix_beta, const int* skip,
+                              const float* th_lo, float alpha, float beta,
+                              float gamma, float* out, int B, int C, int nq,
+                              int p, int tile_size, int block_s,
+                              void* stream) {
+  if (skip == nullptr) return cudaErrorInvalidValue;
+  return launch_f(offs, wb, wl, essential, prefix_beta, skip, th_lo, alpha,
+                  beta, gamma, out, B, C, nq, p, tile_size, block_s, stream);
 }
 
 // [B, Nq, ...] raw q8 rows -> [B, 6, S]; `skip` and `C` are ignored.
@@ -561,19 +674,30 @@ int guided_score_tile_q_launch(const int* words, const uint8_t* qb,
                                void* stream) {
   (void)skip;
   (void)C;
-  if (bad_sizes(B, nq, p, tile_size, block_s) || wp < 1)
-    return cudaErrorInvalidValue;
-  static size_t attr = 0;
-  const size_t smem = smem_bytes(nq, block_s, true);
-  const cudaError_t err =
-      fit_smem((const void*)guided_score_tile_q_kernel, smem, &attr);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((tile_size + block_s - 1) / block_s, B);
-  guided_score_tile_q_kernel<<<grid, kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      words, qb, ql, meta_i, meta_f, qw_b, qw_l, essential, prefix_beta,
-      th_lo, alpha, beta, gamma, out, nq, wp, p, tile_size, block_s);
-  return cudaGetLastError();
+  return launch_q(words, qb, ql, meta_i, meta_f, qw_b, qw_l, essential,
+                  prefix_beta, nullptr, th_lo, alpha, beta, gamma, out, B, 1,
+                  nq, wp, p, tile_size, block_s, stream);
+}
+
+// [B, C, Nq, ...] raw q8 rows, qw_b / qw_l [B, Nq] -> [B, C, 6, S]; skip
+// [B, C] nonzero = zero rows.
+int guided_score_chunk_q_launch(const int* words, const uint8_t* qb,
+                                const uint8_t* ql, const int* meta_i,
+                                const float* meta_f, const float* qw_b,
+                                const float* qw_l, const float* essential,
+                                const float* prefix_beta, const int* skip,
+                                const float* th_lo, float alpha, float beta,
+                                float gamma, float* out, int B, int C,
+                                int nq, int wp, int p, int tile_size,
+                                int block_s, void* stream) {
+  if (skip == nullptr) return cudaErrorInvalidValue;
+  return launch_q(words, qb, ql, meta_i, meta_f, qw_b, qw_l, essential,
+                  prefix_beta, skip, th_lo, alpha, beta, gamma, out, B, C,
+                  nq, wp, p, tile_size, block_s, stream);
+}
+
+const char* error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

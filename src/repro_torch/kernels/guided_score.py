@@ -42,21 +42,25 @@ bytes per live (query, tile) and the output ``20*S`` bytes; at Nq = 16,
 P = S = 2048 that is about 0.43 MB, 0.13 us. A run is read only up to its
 first padding entry, so the bytes the work needs are 12 per valid posting
 plus the output; ``chip_smoke.py`` computes that bound from each run's
-data. Both designs store each posting straight into shared memory (one
+data. The kernels store each posting straight into shared memory (one
 posting per (term, slot); the TPU's one-hot matrix product is not
 needed), keep the dense rows out of device memory, and write each output
 element once.
 
-  - The chunk kernels (``csrc/guided_score.cu``, ``guided_score_q.cu``):
-    blocks of ``BLOCK_S`` slots, the terms one after the other with block
-    barriers. A skipped tile costs one flag read and its zero rows.
-  - The tile kernels (``csrc/guided_score_tile.cu``, both indexes) are
-    bound by latency at the main path's sizes (about 7 postings per run):
-    blocks of ``tile_lane_width`` slots (128: 256 blocks at a batch of 16
-    and S = 2048), a warp per run with no block barrier in the term loop,
-    a presence bitmask per slot in place of zeroed dense rows, and the run
-    scalars in shared memory. The design and its reasons are in the
-    source's header.
+All four run on one source, ``csrc/guided_score_tile.cu``: one kernel per
+index, with a grid of (lane blocks, C tiles, B queries) and a tile as a
+chunk of one tile with no skip flag. At the main path's sizes (about 7
+postings per run) they are bound by latency: a warp per run with no block
+barrier in the term loop, a presence bitmask per slot in place of zeroed
+dense rows, the run scalars in shared memory. The lane block is
+``tile_lane_width`` slots for one tile per query (128: 256 blocks at a
+batch of 16 and S = 2048) and ``chunk_lane_width`` for a chunk (512 at
+a [16, 8] chunk: 512 blocks, about two waves); a skipped tile reads its
+flag, writes its zero rows and nothing else. The design and its reasons
+are in the source's header. The earlier chunk kernels
+(``csrc/guided_score.cu``, ``guided_score_q.cu``: blocks of ``BLOCK_S``
+slots, the terms one after the other with block barriers) are no
+wrapper's any more; ``chip_smoke.py`` times them beside the new ones.
 """
 from __future__ import annotations
 
@@ -67,13 +71,18 @@ import torch
 
 N_ROWS = 5          # Global, Local, Rank, eval mask, rank mask
 N_ROWS_Q = 6        # the same, then postings per slot
-# Doc slots per thread block of the chunk kernels: 16 terms x 512 slots x 2
-# weights x 4 B = 64 KB of shared memory; the launcher halves it when more
-# terms would not fit.
+# Doc slots per thread block of the earlier chunk kernels (guided_score.cu,
+# guided_score_q.cu), which only chip_smoke.py still launches: 16 terms x
+# 512 slots x 2 weights x 4 B = 64 KB of shared memory; the launcher halves
+# it when more terms would not fit.
 BLOCK_S = 512
 # Doc slots per thread block (lane width) of the tile kernels: 2048 / 128 =
 # 16 lane blocks per query, 256 blocks at a batch of 16 on the 132 SMs.
 TILE_LANE_WIDTH = 128
+# The widest lane block of a chunk, and the blocks of 512 threads the H100
+# holds at once (132 SMs x 2: 64 registers a thread allow two per SM).
+CHUNK_LANE_WIDTH = 512
+RESIDENT_BLOCKS = 264
 SMEM_OPTIN_BYTES = 232_448      # H100: the shared memory a block may opt in to
 
 
@@ -93,6 +102,23 @@ def tile_lane_width(nq: int, tile_size: int) -> int:
     width = TILE_LANE_WIDTH
     while width > 32 and tile_smem_bytes(nq, width, True) > SMEM_OPTIN_BYTES:
         width //= 2
+    return min(width, tile_size)
+
+
+def chunk_lane_width(nq: int, tile_size: int, n_tiles: int) -> int:
+    """Doc slots per block of the chunk kernels, for ``n_tiles`` (B * C)
+    tiles: ``tile_lane_width``, doubled up to ``CHUNK_LANE_WIDTH`` while
+    the grid keeps at least ``RESIDENT_BLOCKS`` blocks and a q8 block fits
+    in ``SMEM_OPTIN_BYTES``, and no wider than the tile. Fewer, wider lane
+    blocks cut the waves of a large chunk (at [16, 8] tiles of 2048 slots:
+    512 blocks of 512 slots, about two waves, where 128 would give 2048,
+    about eight); a small chunk keeps the tile kernels' width, which
+    spreads its slots over more SMs."""
+    width = tile_lane_width(nq, tile_size)
+    while (width < min(CHUNK_LANE_WIDTH, tile_size)
+           and n_tiles * -(-tile_size // (2 * width)) >= RESIDENT_BLOCKS
+           and tile_smem_bytes(nq, 2 * width, True) <= SMEM_OPTIN_BYTES):
+        width *= 2
     return min(width, tile_size)
 
 
@@ -279,10 +305,9 @@ def _launch(fn_name: str, offs, wb, wl, essential, prefix_beta, skip, th_lo,
         raise ValueError(f"tile_size={tile_size} must be >= 1")
     out = torch.empty(offs.shape[:-2] + (N_ROWS, tile_size),
                       dtype=torch.float32, device=dev)
-    source, block_s = (("guided_score.cu", BLOCK_S) if skip is not None else
-                       ("guided_score_tile.cu",
-                        tile_lane_width(nq, tile_size)))
-    return _call(source, fn_name,
+    block_s = (chunk_lane_width(nq, tile_size, b * c) if skip is not None
+               else tile_lane_width(nq, tile_size))
+    return _call("guided_score_tile.cu", fn_name,
                  (offs, wb, wl, essential, prefix_beta, skip, th_lo),
                  (alpha, beta, gamma), out, (b, c, nq, p, tile_size),
                  block_s)
@@ -357,10 +382,9 @@ def _launch_q(fn_name: str, words, qb_row, ql_row, meta_i, meta_f, qw_b,
         raise ValueError(f"tile_size={tile_size} must be >= 1")
     out = torch.empty(lead + (N_ROWS_Q, tile_size), dtype=torch.float32,
                       device=dev)
-    source, block_s = (("guided_score_q.cu", BLOCK_S) if skip is not None
-                       else ("guided_score_tile.cu",
-                             tile_lane_width(nq, tile_size)))
-    return _call(source, fn_name,
+    block_s = (chunk_lane_width(nq, tile_size, b * c) if skip is not None
+               else tile_lane_width(nq, tile_size))
+    return _call("guided_score_tile.cu", fn_name,
                  (words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l,
                   essential, prefix_beta, skip, th_lo),
                  (alpha, beta, gamma), out, (b, c, nq, wp, p, tile_size),

@@ -58,13 +58,20 @@ def _inputs(rng, lead, nq, p, tile_size, full_every=0):
 # b, c, nq, p, s, full_every. After the first four, the tile kernels'
 # edges: two presence-mask words (Nq 33, 64), runs longer than 32 postings
 # that cross lane blocks, S not a multiple of the lane width or below it,
-# and runs of exactly P (P = S: every slot; P = 40 over 2048 slots).
+# and runs of exactly P (P = S: every slot; P = 40 over 2048 slots). The
+# last six are chunks large enough for a wider chunk lane width
+# (``chunk_lane_width``: 512, or 256 at Nq 64): mixed skips over tiles of
+# several lane blocks, Nq 33 and 64, S not a multiple of it, runs of
+# exactly P = 96 and 2048 (longer than 64 postings), and S = 384 below it.
 KERNEL_CASES = [
     (3, 4, 5, 96, 384, 0), (2, 3, 16, 2048, 2048, 0),
     (2, 2, 64, 128, 1024, 0), (4, 2, 7, 300, 1000, 0),
     (2, 2, 33, 200, 2000, 0), (3, 2, 64, 512, 1500, 0),
     (2, 2, 16, 2048, 2048, 3), (2, 2, 64, 40, 2048, 4),
-    (2, 1, 5, 40, 100, 0)]
+    (2, 1, 5, 40, 100, 0),
+    (9, 8, 16, 64, 2048, 0), (9, 8, 33, 200, 2000, 0),
+    (9, 8, 64, 512, 1500, 0), (9, 8, 16, 96, 2048, 2),
+    (9, 8, 16, 2048, 2048, 3), (24, 12, 16, 96, 384, 0)]
 
 
 @pytest.mark.parametrize(
@@ -191,12 +198,16 @@ def _q8_rows(rng, lead, nq, p, s, tile=0):
 
 @pytest.mark.parametrize("b,c,nq,p,s", [
     (3, 4, 5, 96, 384), (2, 3, 16, 2048, 2048), (2, 2, 64, 128, 1024),
-    (4, 2, 7, 300, 1000), (2, 2, 33, 200, 2000), (3, 2, 64, 512, 1500)])
+    (4, 2, 7, 300, 1000), (2, 2, 33, 200, 2000), (3, 2, 64, 512, 1500),
+    (9, 8, 16, 64, 2048), (9, 8, 33, 200, 2000), (9, 8, 64, 512, 1500),
+    (9, 8, 16, 2048, 2048), (24, 12, 16, 96, 384)])
 def test_q8_kernels_equal_plain_on_card(cuda, b, c, nq, p, s):
     """Masks and posting counts identical, scores bit-equal, on runs of
-    every gap width, empty and full runs and padded terms (qw = 0); the
-    last two cases need two presence-mask words, and their S is not a
-    multiple of the tile kernel's lane width."""
+    every gap width, empty and full runs and padded terms (qw = 0); cases
+    5-6 need two presence-mask words, and their S is not a multiple of the
+    tile kernel's lane width. The last five take a wider chunk lane width,
+    with each query's C tiles of their own gap widths and zero/scale pairs
+    under the query's one pair of weights."""
     rng = np.random.default_rng(b * 100 + nq)
     rows = [t.to(cuda) for t in _q8_rows(rng, (b, c), nq, p, s)]
     assert set(rows[3][..., 2, :].unique().tolist()) == set(WIDTH_MIN)
@@ -222,6 +233,35 @@ def test_q8_kernels_equal_plain_on_card(cuda, b, c, nq, p, s):
                                gs.guided_score_tile_q_plain(*targs,
                                                             tile_size=s),
                                rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["fp32", "q8"])
+def test_all_skipped_chunk_is_zero_on_card(cuda, q8):
+    """A chunk of the main path's size, [16, 8, 16] tiles of 2048 slots at
+    the chunk lane width, with every tile skipped: zero rows, as the plain
+    version gives, from the chunk wrapper of each index."""
+    rng = np.random.default_rng(11)
+    b, c, nq, p, s = 16, 8, 16, 64, 2048
+    ess = torch.ones(b, c, nq, device=cuda)
+    pb = torch.zeros(b, c, nq, device=cuda)
+    skip = torch.ones(b, c, dtype=torch.int32, device=cuda)
+    th = torch.zeros(b, device=cuda)
+    if q8:
+        rows = [t.to(cuda) for t in _q8_rows(rng, (b, c), nq, p, s)]
+        qw = tuple(torch.ones(b, nq, device=cuda) for _ in range(2))
+        fn, plain = gs.guided_score_chunk_q, gs.guided_score_chunk_q_plain
+    else:
+        rows = [t.to(cuda) for t in _inputs(rng, (b, c), nq, p, s)[:3]]
+        qw = ()
+        fn, plain = gs.guided_score_chunk, gs.guided_score_chunk_plain
+    args = (*rows, *qw, ess, pb, skip, th, 0.7, 0.2, 0.05)
+    gs.reset_launches()
+    out = fn(*args, tile_size=s)
+    assert fn.launches == 1
+    torch.testing.assert_close(out, plain(*args, tile_size=s), rtol=0,
+                               atol=0)
+    assert not bool(out.any())
     torch.cuda.synchronize()
 
 

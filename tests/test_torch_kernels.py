@@ -173,3 +173,83 @@ def test_tile_grid_fills_the_card_on_the_main_path():
     width = gs.tile_lane_width(16, 2048)
     assert 16 * -(-2048 // width) >= 132
     assert 16 * -(-2048 // gs.BLOCK_S) < 132
+
+
+@pytest.mark.parametrize("nq,tile_size,n_tiles", [
+    (16, 2048, 128), (16, 2048, 16), (16, 2048, 72), (33, 2000, 72),
+    (64, 1500, 72), (64, 2048, 4096), (16, 384, 288), (16, 300, 200),
+    (5, 100, 2), (1, 64, 1)])
+def test_chunk_lane_width_covers_and_fits(nq, tile_size, n_tiles):
+    """The chunk kernels' lane blocks cover every slot once, a block's
+    shared memory (fp32 and q8) fits the H100's opt-in limit at Nq <= 64,
+    and a chunk is never cut finer than one tile per query would be."""
+    width = gs.chunk_lane_width(nq, tile_size, n_tiles)
+    n_blocks = -(-tile_size // width)
+    assert 1 <= width <= tile_size
+    assert (n_blocks - 1) * width < tile_size <= n_blocks * width
+    assert gs.tile_lane_width(nq, tile_size) <= width <= gs.CHUNK_LANE_WIDTH
+    for q8 in (False, True):
+        assert gs.tile_smem_bytes(nq, width, q8) <= 227 * 1024
+
+
+def test_chunk_grid_is_about_two_waves_on_the_main_path():
+    """At the main path's [B=16, C=8, Nq=16] chunk of S = 2048 slots the
+    chunk grid runs in at most about two waves of the stated residency
+    (two 512-thread blocks per SM, whose shared memory fits an SM's 228
+    KB together), where the tile kernels' lane width would give eight; a
+    chunk too small to fill the card keeps the tile kernels' width."""
+    width = gs.chunk_lane_width(16, 2048, 16 * 8)
+    blocks = 16 * 8 * -(-2048 // width)
+    assert width == gs.CHUNK_LANE_WIDTH
+    assert gs.RESIDENT_BLOCKS <= blocks <= 2 * gs.RESIDENT_BLOCKS
+    assert 2 * gs.tile_smem_bytes(16, width, True) <= 228 * 1024
+    assert 16 * 8 * -(-2048 // gs.tile_lane_width(16, 2048)) \
+        > 7 * gs.RESIDENT_BLOCKS
+    assert gs.chunk_lane_width(16, 2048, 16) == gs.tile_lane_width(16, 2048)
+
+
+def _raw_args(q8: bool, b: int, c: int | None, nq: int, p: int):
+    """Zero inputs of a kernel wrapper's shapes (``c`` None: one tile per
+    query), on the CPU."""
+    lead = (b,) if c is None else (b, c)
+    z = torch.zeros
+    if q8:
+        rows = (z(lead + (nq, 3), dtype=torch.int32),
+                z(lead + (nq, p), dtype=torch.uint8),
+                z(lead + (nq, p), dtype=torch.uint8),
+                z(lead + (3, nq), dtype=torch.int32), z(lead + (4, nq)),
+                z(b, nq), z(b, nq))
+    else:
+        rows = (z(lead + (nq, p), dtype=torch.int32), z(lead + (nq, p)),
+                z(lead + (nq, p)))
+    skip = None if c is None else z(b, c, dtype=torch.int32)
+    return (*rows, z(lead + (nq,)), z(lead + (nq,)), skip, z(b), 1.0, 0.3,
+            0.05)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["fp32", "q8"])
+@pytest.mark.parametrize("form,b,c", [
+    ("chunk", 16, 8), ("chunk", 2, 3), ("tile", 16, None)])
+def test_launchers_route_to_the_tile_source(monkeypatch, q8, form, b, c):
+    """Both forms of both indexes launch from ``guided_score_tile.cu``: the
+    chunk launchers at the chunk lane width (512 at the main path's [16,
+    8] chunk, the tile width for a small chunk), the tile launchers at the
+    tile lane width."""
+    calls = []
+
+    def record(source, fn_name, inputs, coefs, out, sizes, block_s):
+        calls.append((source, fn_name, sizes, block_s))
+        return out
+    monkeypatch.setattr(gs, "_call", record)
+    nq, p, s = 16, 4, 2048
+    fn_name = f"guided_score_{form}{'_q' if q8 else ''}_launch"
+    launch = gs._launch_q if q8 else gs._launch
+    out = launch(fn_name, *_raw_args(q8, b, c, nq, p), b=b, c=c or 1,
+                 tile_size=s)
+    width = (gs.chunk_lane_width(nq, s, b * c) if form == "chunk"
+             else gs.tile_lane_width(nq, s))
+    assert calls == [("guided_score_tile.cu", fn_name,
+                      (b, c or 1, nq) + ((3,) if q8 else ()) + (p, s),
+                      width)]
+    assert width == (512 if (form, b) == ("chunk", 16) else 128)
+    assert out.shape == (b,) + ((c,) if c else ()) + (6 if q8 else 5, s)
