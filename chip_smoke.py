@@ -6,7 +6,9 @@ Phases, one JSON line each:
 
   device    the card (nvidia-smi name and power limit); stops without CUDA
   build     nvcc builds every kernel of the path from ``src/repro_torch``
-            (one nvcc per source, all started together)
+            (one nvcc per source, all started together); the f32 route's
+            library must hold TF32 mma instructions (``cuobjdump -sass``:
+            HMMA.1688.F32.TF32)
   index     a seeded splade_like corpus of 2^20 docs over the 30522-term
             BERT WordPiece vocabulary, indexed onto the card (fp32 BII)
   index_q8  the compressed (q8) index of the same postings, on the card
@@ -52,22 +54,31 @@ Phases, one JSON line each:
             rotate over the 40 layers' caches (1.35 GB, past the L2)
   lm_f32    the same model in float32 compute (the reference's smoke
             configs' dtype): prefill 4 x 128, 8 decode steps, every K6
-            call on its "simt" route, against a cache-free forward
+            call on its "f32" route (3xTF32 on the tensor cores), against
+            a cache-free forward; K6 checked and timed on the layer-0
+            inputs of the prefill and of a decode step, beside the simt
+            kernel on the same inputs (``prev_ms``), also within
+            ``fa.three_pass_bound`` (2e-5 + 2e-5 |plain|), where the same
+            attention with one TF32 pass per product must fail it
   recsys    dlrm-rm2, two-tower-retrieval and bert4rec at full width:
             serve_p99 (batch 512) and retrieval_cand (1,000,448 candidates,
             top-100) through embedding_bag / flash_attention, each against
             the same step on the CPU
-  kernels_models  flash_attention (three routes) and embedding_bag against
-            their plain versions on the main path's inputs (captured from
-            the lm and recsys runs, where a zeroed output and one without
-            each row's last key tile are shown to fail the route's
-            tolerance) and odd shapes, each K6 case with its route; times
-            beside the bound, the plain version and one PyTorch library
-            call
+  kernels_models  flash_attention (routes mma, split and f32) and
+            embedding_bag against their plain versions on the main path's
+            inputs (captured from the lm and recsys runs, where a zeroed
+            output and one without each row's last key tile are shown to
+            fail the route's tolerance) and odd shapes, each K6 case with
+            its route; times beside the bound, the plain version, one
+            PyTorch library call and the earlier kernel on the same inputs
+            (K6: the simt kernel, ``flash_attention.cu``, as ``simt_ms`` on
+            mma and split and ``prev_ms`` on f32; K5: the one-thread-per-
+            element kernel, ``prev_ms``); K5's odd shapes include two on
+            its scalar path (D 3, a table off a 16-byte boundary)
 
-Then the six kernels' summary line (flash_attention once, with its three
-routes), the nvidia-smi line and, last, the one-line verdict. Any failed
-check raises and the script exits non-zero.
+Then the six kernels' summary line (flash_attention once, with its routes
+mma, split and f32), the nvidia-smi line and, last, the one-line verdict.
+Any failed check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
 """
 from __future__ import annotations
@@ -114,6 +125,17 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return proc.stdout.strip().splitlines()[0]
+
+
+def sass_count(library: str, opcode: str) -> int:
+    """Lines of ``opcode`` in the SASS of a built library (``cuobjdump``
+    from the CUDA toolkit that holds nvcc)."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", library],
+                          capture_output=True, text=True, timeout=120,
+                          check=True)
+    return proc.stdout.count(opcode)
 
 
 def event_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -876,21 +898,21 @@ def phase_rank_safe(label, index, postings, corpus, dev):
 # --------------------------------------------------------------------------
 
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense, tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 dense, tensor cores
+TF32_PASSES = 3                # TF32 products per float32 product on "f32"
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_DECODE = "granite-3-2b", 4, 4096, 32
 LM_MAX_LEN = LM_PROMPT + LM_DECODE
 RECSYS_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "bert4rec")
 RECSYS_CHECK_ROWS, RECSYS_CHECK_CANDS = 8, 65536
 # K6 against its plain version, per element: ``fa.tolerance`` of the
-# call's route (float32 2e-4 + 2e-4 |plain|; bfloat16 1e-2 |plain| +
-# 1e-4 (p @ |v|) on "simt", + (2^-8 + 1e-4) (p @ |v|) on "mma" and
-# "split", which round P to bfloat16). The outputs of a long average are small, so a
-# fixed floor would pass a zeroed output; each main-path check also shows
-# that a zeroed output and one without the last key tile fail. K5:
-# bit-equal.
-FA_TILE_KEYS = 64               # keys per tile (kBK of every K6 kernel)
-FA_TOLERANCE = ("float32 within 2e-4 + 2e-4|plain|; bfloat16 within "
-                "1e-2|plain| + 1e-4 (p @ |v|) on simt, 1e-2|plain| + "
-                "(2^-8 + 1e-4) (p @ |v|) on mma and split")
+# call's route (float32, the "f32" route, 2e-4 + 2e-4 |plain|; bfloat16
+# 1e-2 |plain| + (2^-8 + 1e-4) (p @ |v|) on "mma" and "split", which round
+# P to bfloat16). The outputs of a long average are small, so a fixed floor
+# would pass a zeroed output; each main-path check also shows that a
+# zeroed output and one without the last key tile fail. K5: bit-equal.
+FA_TILE_KEYS = 64               # keys per tile of the without-last-tile check
+FA_TOLERANCE = ("float32 (f32) within 2e-4 + 2e-4|plain|; bfloat16 (mma, "
+                "split) within 1e-2|plain| + (2^-8 + 1e-4) (p @ |v|)")
 # The decode path against a cache-free forward, and bfloat16 models on
 # the card against the CPU: max |d| <= 2% of max |reference| (bfloat16
 # keeps about 3 significant digits, and the two paths round their matrix
@@ -902,7 +924,7 @@ BF16_MODEL_RTOL = 0.02
 # top, so argmax must agree only where the reference's top-2 margin
 # exceeds 2 e; at least this many of the 32 positions must be such.
 LM_STRICT_MIN = 8
-# The float32 model (every K6 call on "simt"): decode against the
+# The float32 model (every K6 call on "f32"): decode against the
 # cache-free forward within 1e-3 of max |ref| (float32 throughout, TF32
 # off; the two paths only sum in other orders).
 LM_F32_PROMPT, LM_F32_DECODE, F32_MODEL_RTOL = 128, 8, 1e-3
@@ -913,6 +935,13 @@ def model_kernels():
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import flash_attention as fa
     return {"flash_attention": fa, "embedding_bag": eb}
+
+
+def fa_routes(**counts) -> dict:
+    """K6 launches by route: ``counts`` on the routes named, 0 on the
+    others ``flash_attention.route`` can return."""
+    from repro_torch.kernels import flash_attention as fa
+    return {way: counts.get(way, 0) for way in fa.ROUTES}
 
 
 def reset_model_launches() -> None:
@@ -975,7 +1004,8 @@ def synced_ms(fn) -> tuple:
 def fa_bound(q, k, causal, kv_offset) -> dict:
     """K6: q and out, and the K/V rows some query sees, moved once; 4 D
     operations per visible (query, key) pair, at the tensor-core rate of
-    bfloat16 (float32: the CUDA-core rate)."""
+    bfloat16 (float32: three times as many at the TF32 tensor-core rate,
+    as the "f32" route forms each product from three TF32 products)."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     elt = q.element_size()
@@ -985,9 +1015,12 @@ def fa_bound(q, k, causal, kv_offset) -> dict:
     n_keys = int(visible.max()) if sq else 0
     nbytes = elt * (2 * b * h * sq * d + 2 * b * hkv * n_keys * d)
     ops = 4 * d * b * h * int(visible.sum())
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    if q.dtype == torch.bfloat16:
+        t_ops = ops / BF16_OPS_PER_S * 1e3
+    else:
+        ops *= TF32_PASSES
+        t_ops = ops / TF32_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops, "shape": {
@@ -1069,6 +1102,32 @@ def attention_kept(q, k, v, keep, sm_scale=None):
         group, 1)).to(q.dtype)
 
 
+def tf32(x):
+    """float32 rounded to TF32 as ``cvt.rna`` rounds it: to nearest, ties
+    away from zero, the low 13 bits of the pattern cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
+def attention_one_tf32_pass(q, k, v, causal, kv_offset, sm_scale=None):
+    """K6 in float32 with one TF32 pass per product (the arithmetic the
+    "f32" route must not have): Q, K, P and V rounded to TF32, each
+    product of the rounded operands exact and summed in float32 (TF32 is
+    off for float32 matrix products here), l from the unrounded P."""
+    group = q.shape[1] // k.shape[1]
+    scale = sm_scale or q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", tf32(q),
+                     tf32(k).repeat_interleave(group, 1)) * scale
+    if causal:
+        pos = kv_offset + torch.arange(q.shape[2], device=q.device)
+        s = s.masked_fill(torch.arange(k.shape[2], device=q.device)[None]
+                          > pos[:, None], -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhqk,bhkd->bhqd", tf32(p),
+                       tf32(v).repeat_interleave(group, 1))
+    return out / p.sum(-1, keepdim=True)
+
+
 def without_last_tile(sq, skv, causal, kv_offset, device):
     """[Sq, Skv]: the keys each row sees, less the FA_TILE_KEYS tile that
     holds its last one (a row of one tile keeps it): what a kernel that
@@ -1102,8 +1161,9 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
     """K6 on main-path inputs: checked against its plain version (one
     sequence at a time where the plain version's float32 scores of all
     sequences would not fit beside the model), timed beside its bound,
-    the plain version and SDPA; on the mma and split routes also the simt
-    kernel's time on the same inputs (``simt_ms``, uncounted)."""
+    the plain version and SDPA, and the simt kernel's time on the same
+    inputs (uncounted): ``simt_ms`` on the mma and split routes, ``prev_ms``
+    on f32, whose earlier design it is."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = args
     # held to the plain version that keeps P in float32, which
@@ -1117,7 +1177,9 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
         fa.flash_attention_plain, **kwargs), q, k, v, split)
     ref = plain()
     tol = fa_tolerance(q, k, v, ref, kwargs, split)
-    err = fa_close("flash_attention main", kern(), ref, tol)
+    way = fa.route(q, k)
+    out = kern()
+    err = fa_close("flash_attention main", out, ref, tol)
     # the bound rejects a zeroed output and one without each row's last
     # key tile, on these inputs
     keep = without_last_tile(q.shape[2], k.shape[2], causal, off, q.device)
@@ -1131,21 +1193,47 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
         rejected[name] = outside_share(wrong(), ref, tol)
         require(rejected[name] > 0, f"flash_attention main: a {name} "
                                     f"output passes the tolerance")
-    del ref, tol, keep
+    passes = {}
+    if way == "f32":
+        # the kernel within the tighter bound of its pass structure, where
+        # one TF32 pass per product (emulated here) falls outside it
+        tight = fa.three_pass_bound(ref)
+        fa_close("flash_attention main, three TF32 passes", out, ref, tight)
+        one = attention_one_tf32_pass(q, k, v, causal, off,
+                                      kwargs.get("sm_scale"))
+        rejected["one_tf32_pass"] = outside_share(one, ref, tight)
+        require(rejected["one_tf32_pass"] > 0,
+                "flash_attention main: one TF32 pass per product passes "
+                "fa.three_pass_bound")
+        passes = {"three_pass_bound": "2e-5 + 2e-5 |plain|",
+                  "max_err_over_three_pass_bound": float(
+                      ((out - ref).abs() / tight).max()),
+                  "one_tf32_pass_max_err_over_tolerance": float(
+                      ((one - ref).abs() / tol).max()),
+                  "one_tf32_pass_outside_tolerance": outside_share(
+                      one, ref, tol)}
+        del one, tight
+    del ref, tol, keep, out
     lib = sdpa_call(q, k, v, causal, off)
     t_k, t_p = timings(kern), timings(plain)
-    way = fa.route(q, k)
-    if way != "simt":       # the simt kernel on the same inputs, for scale
-        out = torch.empty_like(q)
-        t_k["simt_ms"] = timings(functools.partial(
-            fa._launch, "simt", q, k, v, out, causal,
-            kwargs.get("sm_scale") or q.shape[-1] ** -0.5, off))["ms"]
+    t_k["prev_ms" if way == "f32" else "simt_ms"] = simt_ms(q, k, v, kwargs)
     return {"route": way, "max_abs_err": err,
-            "wrong_outputs_rejected": rejected, **t_k,
+            "wrong_outputs_rejected": rejected, **passes, **t_k,
             "plain_ms": t_p["ms"], "plain_event_ms": t_p["event_ms"],
             "library_ms": None if lib is None else timings(lib)["ms"],
             "library": "scaled_dot_product_attention(enable_gqa)",
             **fa_bound(q, k, causal, off)}
+
+
+def simt_ms(q, k, v, kwargs) -> float:
+    """The simt kernel (``flash_attention.cu``, no route's) on these inputs,
+    uncounted: the yardstick of the other routes."""
+    from repro_torch.kernels import flash_attention as fa
+    out = torch.empty_like(q)
+    return timings(functools.partial(
+        fa._launch, "simt", q, k, v, out, kwargs.get("causal", True),
+        kwargs.get("sm_scale") or q.shape[-1] ** -0.5,
+        kwargs.get("kv_offset", 0)))["ms"]
 
 
 def rotating_fa(q, layers, kwargs) -> dict:
@@ -1182,21 +1270,33 @@ def rotating_fa(q, layers, kwargs) -> dict:
 
 def measure_eb(args) -> dict:
     """K5 on main-path inputs: bit-equal to its plain version, timed beside
-    its bound, the plain version and one F.embedding_bag call over the
-    flattened tables."""
+    its bound, the plain version, one F.embedding_bag call over the
+    flattened tables and the earlier kernel (``prev_ms``, uncounted, also
+    bit-equal)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import embedding_bag as eb
     table, idx, w = args
     out = eb.embedding_bag(table, idx, w)
     require(torch.equal(out, eb.embedding_bag_plain(table, idx, w)),
             "embedding_bag main: differs from its plain version")
-    tab = table if table.dim() == 3 else table[None]
-    ix = idx if idx.dim() == 3 else idx[:, None]
+    tab, ix, w3, _ = eb._fields(table, idx, w)
+    prev_out = torch.empty_like(out)
+
+    def prev():
+        build.launch(eb.SOURCE, "embedding_bag_prev_launch", tab.device, tab,
+                     ix, w3, prev_out, eb._DTYPES[tab.dtype],
+                     ix.shape[0] * tab.shape[0], tab.shape[0], ix.shape[2],
+                     tab.shape[1], tab.shape[2])
+    prev()
+    require(torch.equal(prev_out, out),
+            "embedding_bag main: the earlier kernel differs")
     off = (torch.arange(tab.shape[0], device=ix.device) * tab.shape[1])
     flat_idx = (ix.long() + off[None, :, None]).reshape(-1, ix.shape[-1])
     flat_w = w.reshape(-1, ix.shape[-1])
     flat_tab = tab.reshape(-1, tab.shape[-1])
     t_k = timings(functools.partial(eb.embedding_bag, table, idx, w))
+    t_k["prev_ms"] = timings(prev)["ms"]
     t_p = timings(functools.partial(eb.embedding_bag_plain, table, idx, w))
     t_l = timings(lambda: F.embedding_bag(flat_idx, flat_tab, mode="sum",
                                           per_sample_weights=flat_w))
@@ -1271,8 +1371,8 @@ def phase_lm(seed: int, dev) -> dict:
     reset_model_launches()
     (logits, cache), prefill_ms = synced_ms(lambda: prefill(params, tokens))
     launches = {"prefill": model_launches()}
-    require(launches["prefill"]["flash_attention_routes"] == {
-        "mma": cfg.n_layers, "simt": 0, "split": 0},
+    require(launches["prefill"]["flash_attention_routes"] == fa_routes(
+        mma=cfg.n_layers),
         f"prefill: K6 launches by route "
         f"{launches['prefill']['flash_attention_routes']}, expected "
         f"{cfg.n_layers} on mma")
@@ -1297,8 +1397,8 @@ def phase_lm(seed: int, dev) -> dict:
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE
     launches["decode"] = model_launches()
-    require(launches["decode"]["flash_attention_routes"] == {
-        "mma": 0, "simt": 0, "split": cfg.n_layers * LM_DECODE},
+    require(launches["decode"]["flash_attention_routes"] == fa_routes(
+        split=cfg.n_layers * LM_DECODE),
         f"decode: K6 launches by route "
         f"{launches['decode']['flash_attention_routes']}, expected "
         f"{cfg.n_layers} per step on split")
@@ -1312,8 +1412,8 @@ def phase_lm(seed: int, dev) -> dict:
     reset_model_launches()
     hidden, _, _ = T.forward(cfg, params, seq)
     ref_launches = model_launches()      # a check, not the main path
-    require(ref_launches["flash_attention_routes"] == {
-        "mma": cfg.n_layers, "simt": 0, "split": 0},
+    require(ref_launches["flash_attention_routes"] == fa_routes(
+        mma=cfg.n_layers),
         f"cache-free forward: K6 launches "
         f"by route {ref_launches['flash_attention_routes']}")
     ref = T.logits_fn(cfg, params, hidden[:, LM_PROMPT + LM_DECODE - 8:])
@@ -1360,9 +1460,11 @@ def phase_lm(seed: int, dev) -> dict:
                           f"identical where the reference's top-2 margin > "
                           f"2 max|d| (at least {LM_STRICT_MIN} positions)"}},
          profile=prof,
-         kernel_check={k: {f: v[f] for f in ("route", "max_abs_err",
-                                             "wrong_outputs_rejected",
-                                             "shape")}
+         kernel_check={k: {f: v[f] for f in (
+             "route", "max_abs_err", "wrong_outputs_rejected",
+             "max_err_over_three_pass_bound",
+             "one_tf32_pass_max_err_over_tolerance",
+             "one_tf32_pass_outside_tolerance", "shape") if f in v}
                        for k, v in main.items()},
          decode_rotating=main["decode"]["rotating"],
          reduced=["prefill_32k: batch 32 x 32768 -> 4 x 4096 (time limit)",
@@ -1372,16 +1474,16 @@ def phase_lm(seed: int, dev) -> dict:
     f32 = phase_lm_f32(arch, cfg, master, seed)
     del master
     launches.update(f32["launches"])
-    main["decode_f32"] = f32["main"]
+    main.update(f32["main"])
     return {"launches": launches, "main": main}
 
 
 def phase_lm_f32(arch, cfg, master, seed: int) -> dict:
-    """The LM at full width in float32 compute, the path of K6's "simt"
+    """The LM at full width in float32 compute, the path of K6's "f32"
     route: prefill 4 x 128 prompts into a 136-position cache, 8 greedy
     decode steps against a cache-free forward, K6 checked and timed on the
-    layer-0 inputs of a decode step. Returns the launch counts and K6's
-    measurement."""
+    layer-0 inputs of the prefill and of a decode step. Returns the launch
+    counts and K6's measurements."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
@@ -1395,7 +1497,9 @@ def phase_lm_f32(arch, cfg, master, seed: int) -> dict:
     prefill = steps.make_serve_step(arch, "prefill_32k", cfg,
                                     max_len=max_len)
     decode = steps.make_serve_step(arch, "decode_32k", cfg)
-    prefill(params, tokens)                                 # warm-up run
+    with first_call(fa, "flash_attention") as seen:      # warm-up run
+        prefill(params, tokens)
+    pre_args = seen[0]
     reset_model_launches()
     (logits, cache), prefill_ms = synced_ms(lambda: prefill(params, tokens))
     launches = {"prefill_f32": model_launches()}
@@ -1418,10 +1522,10 @@ def phase_lm_f32(arch, cfg, master, seed: int) -> dict:
     launches["decode_f32"] = model_launches()
     for name, n in (("prefill_f32", cfg.n_layers),
                     ("decode_f32", cfg.n_layers * LM_F32_DECODE)):
-        require(launches[name]["flash_attention_routes"] == {
-            "mma": 0, "simt": n, "split": 0}, f"{name}: K6 launches by "
-            f"route {launches[name]['flash_attention_routes']}, expected "
-            f"{n} on simt")
+        require(launches[name]["flash_attention_routes"] == fa_routes(f32=n),
+                f"{name}: K6 launches by route "
+                f"{launches[name]['flash_attention_routes']}, expected {n} "
+                f"on f32")
     got = torch.stack(dec_logits, 1)                 # [B, 8, V]
     require(bool(torch.isfinite(got).all()), "lm_f32: non-finite logits")
     seq = torch.cat([tokens] + [g.to(tokens.dtype) for g in gen[:-1]], 1)
@@ -1434,7 +1538,8 @@ def phase_lm_f32(arch, cfg, master, seed: int) -> dict:
             f"{F32_MODEL_RTOL} * {scale}")
     argmax = check_argmax(got, ref[..., :cfg.vocab], diff)
     del hidden, ref
-    main = measure_fa(*dec_args, per_sequence_plain=False)
+    main = {"prefill_f32": measure_fa(*pre_args, per_sequence_plain=False),
+            "decode_f32": measure_fa(*dec_args, per_sequence_plain=False)}
     emit("lm_f32", arch=LM_ARCH, compute_dtype=str(cfg.compute_dtype),
          prefill={"batch": LM_BATCH, "prompt": LM_F32_PROMPT,
                   "max_len": max_len, "ms": prefill_ms},
@@ -1444,13 +1549,16 @@ def phase_lm_f32(arch, cfg, master, seed: int) -> dict:
              "steps": LM_F32_DECODE, "max_abs_diff": diff,
              "max_abs_logit": scale, **argmax,
              "tolerance": f"max|d| <= {F32_MODEL_RTOL} * max|ref|"}},
-         kernel_check={f: main[f] for f in ("route", "max_abs_err",
-                                            "wrong_outputs_rejected",
-                                            "shape")},
+         kernel_check={k: {f: v[f] for f in (
+             "route", "max_abs_err", "wrong_outputs_rejected",
+             "max_err_over_three_pass_bound",
+             "one_tf32_pass_max_err_over_tolerance",
+             "one_tf32_pass_outside_tolerance", "shape") if f in v}
+                       for k, v in main.items()},
          reduced=[f"float32 compute, prompt {LM_BATCH} x {LM_F32_PROMPT} and "
-                  f"{LM_F32_DECODE} decode steps: the path of the simt "
+                  f"{LM_F32_DECODE} decode steps: the path of the f32 "
                   f"route, not a serving cell"])
-    del params, cache, dec_args
+    del params, cache, pre_args, dec_args
     return {"launches": launches, "main": main}
 
 
@@ -1545,8 +1653,8 @@ def phase_recsys(seed: int, dev) -> dict:
             require(counts[kname] > 0, f"{arch_id} {shape}: {kname} never "
                                        f"launched")
             if kname == "flash_attention":      # BERT4Rec's encoder: mma
-                require(counts["flash_attention_routes"] == {
-                    "mma": counts[kname], "simt": 0, "split": 0},
+                require(counts["flash_attention_routes"] == fa_routes(
+                    mma=counts[kname]),
                     f"{arch_id} {shape}: "
                     f"K6 launches by route {counts['flash_attention_routes']}")
             res = first_tensor(out)
@@ -1615,7 +1723,8 @@ def phase_recsys(seed: int, dev) -> dict:
 
 def phase_model_kernels(dev) -> list:
     """K5 and K6 against their plain versions on odd shapes; each K6 case
-    launches the route ``fa.route`` names for it, and only that one."""
+    launches the route ``fa.route`` names for it, and only that one, and is
+    timed beside the simt kernel on the same inputs."""
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -1648,7 +1757,22 @@ def phase_model_kernels(dev) -> list:
             (4, 32, 8, 1, 4128, 64, True, 4096, bf, False),  # last: one key
             (4, 32, 8, 1, 4128, 64, True, 3000, bf, True),  # cache view
             (1, 4, 4, 1, 333, 64, False, 0, bf, False),   # bidirectional
-            (1, 1, 1, 17, 300, 64, True, 200, bf, False)]:  # 17 rows: simt
+            # mma above 16 rows: a partly filled block, D % 16 != 0
+            (1, 1, 1, 17, 300, 64, True, 200, bf, False),  # 17 rows
+            (1, 1, 1, 33, 300, 64, True, 200, bf, False),  # 33 rows
+            (1, 4, 1, 15, 300, 64, True, 285, bf, False),  # 60 rows
+            (1, 4, 2, 20, 130, 24, True, 40, bf, False),   # D 24, 40 rows
+            # f32: decode with more key tiles than warps, a last tile of
+            # one key, D 48/128, group 1/4/8, bidirectional, views
+            (2, 8, 2, 1, 1500, 64, True, 1499, f32, False),  # 12 tiles
+            (1, 8, 2, 1, 300, 64, True, 256, f32, False),   # last: one key
+            (1, 4, 4, 65, 65, 64, True, 0, f32, False),     # last: one key
+            (1, 4, 4, 70, 150, 48, True, 80, f32, False),   # D 48
+            (1, 8, 8, 3, 500, 128, True, 497, f32, False),  # D 128 decode
+            (2, 4, 2, 130, 190, 128, True, 60, f32, False),  # D 128 prefill
+            (1, 8, 1, 2, 700, 64, True, 600, f32, False),   # 16 rows
+            (1, 4, 4, 1, 333, 64, False, 0, f32, False),    # bidirectional
+            (4, 32, 8, 1, 4128, 64, True, 3000, f32, True)]:  # cache view
         if view:            # [B, S, H, D] tensors, read through views
             q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
                        .transpose(1, 2)
@@ -1666,19 +1790,32 @@ def phase_model_kernels(dev) -> list:
         require(fa.launches_by_route == {**before, way: before[way] + 1},
                 f"flash_attention sweep: launches {fa.launches_by_route} "
                 f"after {before}, expected one on {way}")
+        name = f"flash_attention {b}x{h}/{hkv}x{sq}x{skv}x{d}"
+        if way == "f32":
+            fa_close(f"{name}, three TF32 passes", out, ref,
+                     fa.three_pass_bound(ref))
         sweep.append({"kernel": "flash_attention", "route": way,
                       "shape": [b, h, hkv, sq, skv, d], "causal": causal,
                       "kv_offset": off, "dtype": str(dt),
                       "bshd_view": view, "max_abs_err": fa_close(
-                          f"flash_attention {b}x{h}/{hkv}x{sq}x{skv}x{d}",
-                          out, ref, fa_tolerance(q, k, v, ref, kw))})
-    require({r["route"] for r in sweep} == set(fa.SOURCES),
+                          name, out, ref, fa_tolerance(q, k, v, ref, kw)),
+                      "ms": timings(functools.partial(
+                          fa._launch, way, q, k, v, out, causal,
+                          d ** -0.5, off))["ms"],
+                      "simt_ms": simt_ms(q, k, v, kw)})
+    require({r["route"] for r in sweep} == set(fa.ROUTES),
             "flash_attention sweep: a route never ran")
-    for (f, vocab, d, b, l, dt) in [
-            (1, 1000, 64, 37, 1, f32), (1, 500, 256, 300, 16, f32),
-            (26, 1000, 64, 100, 1, f32), (1, 5000, 64, 513, 16, bf),
-            (3, 200, 256, 10, 4, bf)]:
-        table = torch.randn(f, vocab, d, generator=g, device=dev).to(dt)
+    # the last two rows take the scalar path: D 3, and a table that
+    # starts ``shift`` elements past a 16-byte boundary
+    for (f, vocab, d, b, l, dt, shift) in [
+            (1, 1000, 64, 37, 1, f32, 0), (1, 500, 256, 300, 16, f32, 0),
+            (26, 1000, 64, 100, 1, f32, 0), (1, 5000, 64, 513, 16, bf, 0),
+            (3, 200, 256, 10, 4, bf, 0), (1, 700, 3, 200, 16, f32, 0),
+            (1, 700, 64, 200, 16, bf, 1)]:
+        table = torch.randn(f * vocab * d + shift, generator=g,
+                            device=dev).to(dt)[shift:].view(f, vocab, d)
+        require((table.data_ptr() % 16 != 0) == (shift != 0),
+                "embedding_bag sweep: table alignment")
         idx = torch.randint(0, vocab, (b, f, l), generator=g, device=dev,
                             dtype=torch.int32)
         w = torch.rand(b, f, l, generator=g, device=dev).to(dt)
@@ -1693,7 +1830,7 @@ def phase_model_kernels(dev) -> list:
                 f"embedding_bag {f}x{vocab}x{d} B={b} L={l}: differs")
         sweep.append({"kernel": "embedding_bag",
                       "shape": [f, vocab, d, b, l], "dtype": str(dt),
-                      "max_abs_err": 0.0})
+                      "table_offset_elements": shift, "max_abs_err": 0.0})
     torch.cuda.synchronize()
     return sweep
 
@@ -1725,9 +1862,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log = build.build_all()
+    n_tf32 = sass_count(log[fa.SOURCES["f32"]]["path"], "HMMA.1688.F32.TF32")
+    require(n_tf32 > 0, "flash_attention_f32: no TF32 mma in its SASS")
     emit("build", seconds=time.perf_counter() - t0,
          sources={s: {"seconds": v["seconds"], "flags": build.flags(s),
-                      "ptxas": v["ptxas"]} for s, v in log.items()})
+                      "ptxas": v["ptxas"]} for s, v in log.items()},
+         f32_sass={"HMMA.1688.F32.TF32": n_tf32})
 
     reduced = ["q8 paths profiled at k=10 only"]
     if args.n_docs != 2 ** 20:
@@ -1791,20 +1931,22 @@ def main() -> int:
     sweep = phase_model_kernels(dev)
     model_main = {"flash_attention": lm["main"]["prefill"],
                   "embedding_bag": rec["main"]["dlrm-rm2"]}
-    model_other = {"flash_attention": {"decode": lm["main"]["decode"],
-                                       "decode_f32": lm["main"]["decode_f32"],
-                                       "bert4rec": rec["main"]["bert4rec"]},
+    model_other = {"flash_attention": {
+        "decode": lm["main"]["decode"],
+        "prefill_f32": lm["main"]["prefill_f32"],
+        "decode_f32": lm["main"]["decode_f32"],
+        "bert4rec": rec["main"]["bert4rec"]},
                    "embedding_bag": {"two-tower-retrieval":
                                      rec["main"]["two-tower-retrieval"]}}
     emit("kernels_models", main=model_main, other=model_other, sweep=sweep,
          tolerance="embedding_bag bit-equal; flash_attention " + FA_TOLERANCE)
     model_counts = {name: 0 for name in model_kernels()}
-    fa_routes = dict.fromkeys(fa.SOURCES, 0)
+    route_counts = fa_routes()
     for counts in (*lm["launches"].values(), *rec["launches"].values()):
         for name in model_counts:
             model_counts[name] += counts[name]
         for way, n in counts["flash_attention_routes"].items():
-            fa_routes[way] += n
+            route_counts[way] += n
 
     src = "src/repro_torch/kernels/csrc/"
     where = {"guided_score_chunk": ("guided_score_tile.cu", 123),
@@ -1836,26 +1978,29 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "at": m["shape"],
-            "other": {k: {f: o[f] for f in timed}
+            **{f: m[f] for f in ("prev_ms", "simt_ms") if f in m},
+            "other": {k: {f: o[f] for f in timed + ("prev_ms", "simt_ms")
+                          if f in o}
                       for k, o in model_other[name].items()}})
         require(model_counts[name] > 0, f"{name} never launched on its path")
-    # K6 by route: mma at prefill (and bert4rec), split at decode, simt at
-    # the float32 decode
+    # K6 by route: mma at prefill (and bert4rec), split at decode, f32 at
+    # the float32 prefill and decode
     fa_main = {"mma": {"prefill": lm["main"]["prefill"],
                        "bert4rec": rec["main"]["bert4rec"]},
                "split": {"decode": lm["main"]["decode"]},
-               "simt": {"decode_f32": lm["main"]["decode_f32"]}}
+               "f32": {"prefill_f32": lm["main"]["prefill_f32"],
+                       "decode_f32": lm["main"]["decode_f32"]}}
     summary["kernels"][-2]["routes"] = {
-        way: {"source": src + fa.SOURCES[way], "launches": fa_routes[way],
+        way: {"source": src + fa.SOURCES[way], "launches": route_counts[way],
               "max_abs_err": max(
                   [o["max_abs_err"] for o in fa_main[way].values()]
                   + [r["max_abs_err"] for r in sweep
                      if r.get("route") == way]),
-              **{k: {f: o[f] for f in timed + ("simt_ms", "rotating")
-                     if f in o}
+              **{k: {f: o[f] for f in timed + ("simt_ms", "prev_ms",
+                                                "rotating") if f in o}
                  for k, o in fa_main[way].items()}}
         for way in fa_main}
-    for way, n in fa_routes.items():
+    for way, n in route_counts.items():
         require(n > 0, f"flash_attention: the {way} route never launched "
                        f"on its path")
     print(json.dumps(summary), flush=True)

@@ -36,6 +36,7 @@ SOURCE_FLAGS = {
     "flash_attention.cu": (),
     "flash_attention_mma.cu": (),
     "flash_attention_split.cu": (),
+    "flash_attention_f32.cu": (),
 }
 SOURCES = tuple(SOURCE_FLAGS)
 
@@ -66,9 +67,13 @@ SIGNATURES = {
         "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
         "error_string": [_I],
     },
-    # table, idx, w, out, dtype, n_bags, n_fields, bag_len, vocab, d, stream
+    # table, idx, w, out, dtype, n_bags, n_fields, bag_len, vocab, d,
+    # stream; the earlier kernel (one thread per output element) is
+    # launched only by chip_smoke.py
     "embedding_bag.cu": {
         "embedding_bag_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P],
+        "embedding_bag_prev_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _L,
+                                      _I, _P],
     },
     # q, k, v, o, dtype, batch, h, hkv, sq, skv, d, 12 strides (q, k, v, o:
     # batch, head, position), causal, kv_offset, sm_scale, stream
@@ -79,6 +84,11 @@ SIGNATURES = {
     # the same without dtype (bfloat16 only)
     "flash_attention_mma.cu": {
         "flash_attention_mma_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
+                                      + [_I, _I, _F, _P],
+    },
+    # the same (float32 only)
+    "flash_attention_f32.cu": {
+        "flash_attention_f32_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
                                       + [_I, _I, _F, _P],
     },
     # q, k, v, o, scratch, the mma arguments, n_split, split_keys, stream

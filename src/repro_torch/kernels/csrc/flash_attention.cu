@@ -1,6 +1,8 @@
 // Flash attention for Hopper (sm_90a): online-softmax attention with GQA,
 // a causal mask at absolute query position kv_offset + i, and causal tile
-// skipping.
+// skipping. The port's first K6 kernel ("simt"), on the CUDA cores. No
+// route of flash_attention reaches it now: chip_smoke.py launches it only
+// as the yardstick of the other routes, on the same inputs.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (body _kernel). The TPU kernel walks a sequential (head, q block, kv

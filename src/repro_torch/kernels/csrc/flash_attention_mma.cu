@@ -1,7 +1,8 @@
 // Flash attention on the tensor cores for Hopper (sm_90a): the "mma" route
-// of the port's flash_attention, for bfloat16 inputs whose kv head has at
-// least 64 query rows (prefill, a cache-free forward, an encoder). Decode
-// steps and float32 inputs take flash_attention.cu (the "simt" route).
+// of the port's flash_attention, for bfloat16 inputs whose kv head has more
+// than 16 query rows (prefill, a cache-free forward, an encoder, a short
+// prompt; a block of 64 rows may be partly filled). Decode steps take
+// flash_attention_split.cu, float32 inputs flash_attention_f32.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (body _kernel) and computes what it computes: an online softmax over key
@@ -13,7 +14,8 @@
 // kernel uses. q, k, v and out are given by batch, head and position
 // strides in elements with d contiguous, so the model's [B, S, H, d]
 // projections and its [B, max_len, Hkv, d] cache are read in place.
-// d % 16 == 0, d <= 128, rows on 16-byte boundaries.
+// d % 8 == 0, d <= 128, rows on 16-byte boundaries; the head dim is padded
+// to DP in {32, 64, 128} with zero-filled columns, 8 at a time.
 //
 // Bound on an H100 SXM: operations. 4 d flops per visible (query, key)
 // pair (two products of 2 d each): ~2.75e11 per granite-3-2b prefill layer
@@ -370,7 +372,7 @@ int flash_attention_mma_launch(const void* q, const void* k, const void* v,
                                long long v_s, long long o_b, long long o_h,
                                long long o_s, int causal, int kv_offset,
                                float sm_scale, void* stream) {
-  if (d < 16 || d > 128 || d % 16 != 0 || hkv < 1 || h % hkv != 0)
+  if (d < 8 || d > 128 || d % 8 != 0 || hkv < 1 || h % hkv != 0)
     return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                static_cast<const bf16*>(v), static_cast<bf16*>(o), hkv,

@@ -1,8 +1,8 @@
 // Split-KV flash attention for Hopper (sm_90a): the "split" route of the
 // port's flash_attention, for bfloat16 calls with at most 16 query rows per
-// kv head (G * Sq <= 16: a decode step), D <= 128 and D % 8 == 0. Prefill
-// and the encoder take flash_attention_mma.cu ("mma"); float32 and the
-// other shapes take flash_attention.cu ("simt").
+// kv head (G * Sq <= 16: a decode step), D <= 128 and D % 8 == 0. The
+// other bfloat16 calls take flash_attention_mma.cu ("mma"), float32 calls
+// flash_attention_f32.cu ("f32").
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (body _kernel) and computes what it computes: float32 scores, an online

@@ -12,27 +12,31 @@ in float32, and the weighted sum accumulates in float32.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version, a
 CUDA tensor launches a kernel or raises. There is no fallback. Three
-kernels, chosen by ``route(q, k)`` from shape and dtype alone:
+routes, chosen by ``route(q, k)`` from shape and dtype alone:
 
 - "split" (``csrc/flash_attention_split.cu``): bfloat16 with at most 16
-  query rows per kv head (group * Sq), D <= 128 and D % 8 == 0: a decode
-  step. The keys are split over ``n_split`` blocks per kv head
-  (``split_plan``), each writing a float32 partial (m, l, acc) to
-  scratch, and a second kernel joins them: two device launches per call.
-- "mma" (``csrc/flash_attention_mma.cu``): bfloat16 on the tensor cores
-  (mma.sync, a two-stage cp.async K/V ring), for D % 16 == 0, D <= 128 and
-  at least 64 query rows per kv head: prefill, a cache-free forward, an
-  encoder.
-- "simt" (``csrc/flash_attention.cu``): float32 on the CUDA cores, for
-  everything else (float32 inputs, bfloat16 with 17-63 rows per kv head or
-  D % 16 != 0 above 16 rows); it keeps P in float32.
+  query rows per kv head (group * Sq): a decode step. The keys are split
+  over ``n_split`` blocks per kv head (``split_plan``), each writing a
+  float32 partial (m, l, acc) to scratch, and a second kernel joins them:
+  two device launches per call.
+- "mma" (``csrc/flash_attention_mma.cu``): every other bfloat16 call, on
+  the tensor cores (mma.sync, a two-stage cp.async K/V ring): prefill, a
+  cache-free forward, an encoder, a short prompt.
+- "f32" (``csrc/flash_attention_f32.cu``): every float32 call, on the
+  tensor cores at float32 accuracy (three TF32 products per product); at
+  most 16 rows per kv head, the block's warps split the keys.
 
 "split" and "mma" round the unnormalized weights P to bfloat16 before the
-P V product and take l from the unrounded P, as the TPU kernel does. All
-take any strides with D contiguous, so a caller may pass transposed views
-of [B, S, H, D] tensors; they need float32 (simt) or bfloat16, D <= 128
-with rows on a 16-byte boundary. ``tolerance`` gives each route's
+P V product and take l from the unrounded P, as the TPU kernel does; "f32"
+keeps P in float32, as the TPU kernel does at float32. All take any
+strides with D contiguous, so a caller may pass transposed views of [B,
+S, H, D] tensors; they need float32 or bfloat16, D <= 128 a multiple of
+16 bytes, rows on a 16-byte boundary. ``tolerance`` gives each route's
 per-element bound against the plain version.
+
+``csrc/flash_attention.cu`` ("simt", the first kernel, float32 on the
+CUDA cores) is reached by no route: it is only a yardstick that
+``chip_smoke.py`` times on the same inputs through ``_launch``.
 """
 from __future__ import annotations
 
@@ -41,15 +45,17 @@ import math
 
 import torch
 
-SOURCES = {"simt": "flash_attention.cu", "mma": "flash_attention_mma.cu",
-           "split": "flash_attention_split.cu"}
+SOURCES = {"mma": "flash_attention_mma.cu",
+           "split": "flash_attention_split.cu",
+           "f32": "flash_attention_f32.cu",
+           "simt": "flash_attention.cu"}          # the yardstick only
+ROUTES = ("mma", "split", "f32")                   # what route() returns
 MAX_HEAD_DIM = 128
-MMA_MIN_ROWS = 64           # query rows per kv head that fill an mma block
 SPLIT_MAX_ROWS = 16         # query rows per kv head a split block holds
 SPLIT_TILE_KEYS = 64        # keys per tile of the split kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0                # flash_attention calls on the card since reset
-launches_by_route = {"mma": 0, "simt": 0, "split": 0}
+launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -94,18 +100,19 @@ def _check(q, k, v, kv_offset: int) -> None:
 
 
 def route(q, k) -> str:
-    """The kernel a CUDA call of these shapes and dtype launches, by the
-    query rows per kv head (group * Sq): for bfloat16 with D <= 128,
-    "split" at <= 16 rows and D % 8 == 0, "mma" at >= 64 rows and
-    D % 16 == 0; "simt" otherwise (float32, other rows and D)."""
+    """The kernel a CUDA call of these shapes and dtype launches: float32
+    "f32"; bfloat16 "split" at <= 16 query rows per kv head (group * Sq),
+    "mma" above. Raises for a head dim no kernel takes (above 128, or not
+    a multiple of 16 bytes)."""
     d = q.shape[-1]
+    vec = 16 // q.element_size()        # elements per 16-byte load
+    if d > MAX_HEAD_DIM or d % vec:
+        raise ValueError(f"flash_attention kernel: head dim {d} must be a "
+                         f"multiple of {vec} and at most {MAX_HEAD_DIM}")
+    if q.dtype != torch.bfloat16:
+        return "f32"
     rows = q.shape[1] // k.shape[1] * q.shape[2]
-    if q.dtype == torch.bfloat16 and d <= MAX_HEAD_DIM:
-        if rows <= SPLIT_MAX_ROWS and d % 8 == 0:
-            return "split"
-        if rows >= MMA_MIN_ROWS and d % 16 == 0:
-            return "mma"
-    return "simt"
+    return "split" if rows <= SPLIT_MAX_ROWS else "mma"
 
 
 def split_plan(batch: int, hkv: int, n_keys: int, n_sm: int) -> tuple:
@@ -125,9 +132,12 @@ def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
     """Per-element bound on |kernel - plain| for ``route``'s kernel, where
     ``ref`` is ``flash_attention_plain(q, k, v, **kw)``.
 
-    - float32: 2e-4 + 2e-4 |ref|. The kernel sums in another order,
-      divides at the end and uses the fast exponential.
-    - bfloat16, "simt": 1e-2 |ref| + 1e-4 (p @ |v|). Each side rounds a
+    - float32 (every route): 2e-4 + 2e-4 |ref|. The kernel sums in
+      another order, divides at the end and uses the fast exponential;
+      "f32" also forms each product from three TF32 products (hi hi + hi
+      lo + lo hi of x = hi + lo), which leaves about 2^-21 of it out.
+    - bfloat16, "simt" (the yardstick kernel, which keeps P in float32):
+      1e-2 |ref| + 1e-4 (p @ |v|). Each side rounds a
       float32 value to bfloat16 once, so they are at most 2^-7 |x| apart;
       1e-4 is the float32 error before that rounding, scaled by the row's
       weighted mean of |v| (``p @ |v|``, the plain version on |v|). A fixed
@@ -142,7 +152,7 @@ def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
       running max and rescales the split's sums by e^(m_s - m) in float32,
       which scales the rounded term and its error alike: the same bound.
     """
-    if route not in launches_by_route:
+    if route not in SOURCES:
         raise ValueError(f"flash_attention: unknown route {route!r}")
     if ref.dtype == torch.float32:
         return 2e-4 + 2e-4 * ref.abs()
@@ -151,16 +161,23 @@ def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
     return 1e-2 * ref.float().abs() + weight * mag
 
 
+def three_pass_bound(ref) -> torch.Tensor:
+    """A tighter per-element bound for the "f32" route: 2e-5 + 2e-5 |ref|,
+    a tenth of ``tolerance``'s float32 bound, where ``ref`` is the float32
+    plain output. Three TF32 products per product leave about 2^-21 of
+    each out and stay far inside it; one TF32 pass leaves 2^-11 out and
+    falls outside it, though at a decode row it can stay inside
+    ``tolerance``. It holds the kernel to its pass structure."""
+    return 2e-5 + 2e-5 * ref.abs()
+
+
 def _check_cuda(q, k, v) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel: q, k, v must share one "
                          f"of {list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    d = q.shape[-1]
+    route(q, k)                         # raises for a head dim it refuses
     vec = 16 // q.element_size()        # elements per 16-byte load
-    if d > MAX_HEAD_DIM or d % vec:
-        raise ValueError(f"flash_attention kernel: head dim {d} must be a "
-                         f"multiple of {vec} and at most {MAX_HEAD_DIM}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
@@ -225,8 +242,8 @@ def _launch(way, q, k, v, out, causal, sm_scale, kv_offset) -> None:
                               dtype=torch.float32, device=q.device)
         build.launch(SOURCES[way], "flash_attention_split_launch", q.device,
                      q, k, v, out, scratch, *geometry, n_split, split_keys)
-    elif way == "mma":
-        build.launch(SOURCES[way], "flash_attention_mma_launch", q.device,
+    elif way in ("mma", "f32"):
+        build.launch(SOURCES[way], f"flash_attention_{way}_launch", q.device,
                      q, k, v, out, *geometry)
     else:
         build.launch(SOURCES[way], "flash_attention_launch", q.device, q, k,

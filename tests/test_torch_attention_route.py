@@ -1,7 +1,8 @@
 """K6's three CUDA routes, on the CPU: which route a call takes
-(``flash_attention.route``), how the "split" route divides the keys
-(``split_plan``) and joins its partials, and the per-element bound each
-route is held to on the card (``flash_attention.tolerance``).
+(``flash_attention.route``: "split", "mma" or "f32", never the simt
+yardstick), how the "split" route divides the keys (``split_plan``) and
+joins its partials, and the per-element bound each route is held to on
+the card (``flash_attention.tolerance``).
 
 The "mma" and "split" routes round P to bfloat16 before the P V product,
 as the TPU kernel does (``repro/kernels/flash_attention.py``,
@@ -31,25 +32,51 @@ def _meta(*shape, dtype=torch.bfloat16):
     ((4, 32, 1, 64), (4, 8, 4128, 64), torch.bfloat16, "split"),   # decode
     ((4, 32, 4128, 64), (4, 8, 4128, 64), torch.bfloat16, "mma"),  # forward
     ((512, 2, 200, 32), (512, 2, 200, 32), torch.bfloat16, "mma"),  # bert4rec
-    ((4, 32, 4096, 64), (4, 8, 4128, 64), torch.float32, "simt"),  # float32
-    ((1, 4, 70, 24), (1, 2, 130, 24), torch.bfloat16, "simt"),     # D = 24
+    ((4, 32, 4096, 64), (4, 8, 4128, 64), torch.float32, "f32"),   # float32
+    ((1, 4, 70, 24), (1, 2, 130, 24), torch.bfloat16, "mma"),      # D = 24
     ((1, 4, 16, 64), (1, 1, 300, 64), torch.bfloat16, "mma"),      # 64 rows
-    ((1, 4, 15, 64), (1, 1, 300, 64), torch.bfloat16, "simt"),     # 60 rows
+    ((1, 4, 15, 64), (1, 1, 300, 64), torch.bfloat16, "mma"),      # 60 rows
     ((1, 2, 100, 48), (1, 2, 100, 48), torch.bfloat16, "mma"),     # D = 48
     ((1, 8, 4, 64), (1, 2, 300, 64), torch.bfloat16, "split"),     # 16 rows
-    ((1, 1, 17, 64), (1, 1, 300, 64), torch.bfloat16, "simt"),     # 17 rows
+    ((1, 1, 17, 64), (1, 1, 300, 64), torch.bfloat16, "mma"),      # 17 rows
     ((1, 4, 1, 24), (1, 2, 130, 24), torch.bfloat16, "split"),     # D = 24
-    ((1, 4, 1, 20), (1, 2, 130, 20), torch.bfloat16, "simt"),      # D % 8
-    ((4, 32, 1, 64), (4, 8, 4128, 64), torch.float32, "simt"),     # f32 decode
+    ((1, 4, 1, 20), (1, 2, 130, 20), torch.bfloat16, None),        # D % 8
+    ((4, 32, 1, 64), (4, 8, 4128, 64), torch.float32, "f32"),      # f32 decode
 ])
 def test_route_at_main_path_shapes(q_shape, k_shape, dtype, way):
-    """Prefill, the cache-free forward and BERT4Rec's encoder take "mma";
-    a bfloat16 decode step (4 rows per kv head) and any bfloat16 call of
-    at most 16 rows per kv head with D % 8 == 0 take "split"; float32,
-    17-63 rows, and D = 24 above 16 rows take "simt". The rule reads
-    shapes and dtype only (meta tensors, no data)."""
-    assert fa.route(_meta(*q_shape, dtype=dtype),
-                    _meta(*k_shape, dtype=dtype)) == way
+    """Prefill, the cache-free forward and BERT4Rec's encoder take "mma",
+    as does every bfloat16 call above 16 rows per kv head (17-63 rows, D
+    = 24); a bfloat16 decode step (4 rows per kv head) and any bfloat16
+    call of at most 16 rows take "split"; float32 takes "f32". A head dim
+    no kernel takes (bfloat16 D % 8 != 0) raises. The rule reads shapes
+    and dtype only (meta tensors, no data)."""
+    q, k = _meta(*q_shape, dtype=dtype), _meta(*k_shape, dtype=dtype)
+    if way is None:
+        with pytest.raises(ValueError, match="head dim"):
+            fa.route(q, k)
+        return
+    assert fa.route(q, k) == way
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 8), (torch.bfloat16, 24), (torch.bfloat16, 64),
+    (torch.bfloat16, 128), (torch.float32, 4), (torch.float32, 36),
+    (torch.float32, 64), (torch.float32, 128)])
+def test_route_never_returns_simt(dtype, d):
+    """Over a grid of groups, query lengths and kv lengths: float32 always
+    takes "f32"; bfloat16 takes "split" at <= 16 rows per kv head and
+    "mma" above, so every bfloat16 call rounds P as the TPU kernel does.
+    The simt kernel is reached by no shape."""
+    assert "simt" not in fa.ROUTES and set(fa.launches_by_route) == set(
+        fa.ROUTES)
+    for h, hkv in ((1, 1), (4, 1), (8, 2), (32, 8), (16, 16)):
+        for sq in (1, 2, 3, 4, 5, 15, 16, 17, 33, 63, 64, 100, 4096):
+            for skv in (1, 130, 4128):
+                way = fa.route(_meta(1, h, sq, d, dtype=dtype),
+                               _meta(1, hkv, skv, d, dtype=dtype))
+                rows = h // hkv * sq
+                assert way == ("f32" if dtype == torch.float32 else
+                               "split" if rows <= 16 else "mma"), (h, sq)
 
 
 def _bf16_inputs(seed, h, hkv, sq, skv, d):

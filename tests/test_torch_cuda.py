@@ -332,13 +332,13 @@ def test_chunked_search_runs_the_tile_kernels_on_card(cuda):
 
 
 # b, h, hkv, sq, skv, d, causal, kv_offset, and the route of a bfloat16
-# call (float32 always takes "simt")
+# call (float32 always takes "f32")
 FA_CASES = [
     (2, 8, 2, 100, 100, 64, True, 0, "mma"),      # ragged edge, GQA 4
     (1, 4, 4, 1, 300, 128, True, 250, "split"),   # decode row, group 1
     (3, 8, 1, 1, 77, 32, True, 76, "split"),      # decode, MQA (group 8)
     (2, 2, 2, 200, 200, 32, False, 0, "mma"),     # bidirectional (BERT4Rec)
-    (1, 4, 2, 70, 130, 24, True, 40, "simt"),     # head dim 24, offset
+    (1, 4, 2, 70, 130, 24, True, 40, "mma"),      # head dim 24, offset
     (1, 2, 2, 5, 3, 64, True, 10, "split"),       # rows past a short cache
     # the "split" cases of chip_smoke.py's sweep
     (4, 32, 8, 1, 4128, 64, True, 4097, "split"),  # the LM decode step
@@ -348,7 +348,7 @@ FA_CASES = [
     (4, 32, 8, 1, 4128, 64, True, 4096, "split"),  # last split of one key
     (2, 8, 2, 4, 700, 64, True, 640, "split"),    # offset on a split edge
     (1, 4, 4, 1, 333, 64, False, 0, "split"),     # bidirectional
-    (1, 1, 1, 17, 300, 64, True, 200, "simt"),    # 17 rows
+    (1, 1, 1, 17, 300, 64, True, 200, "mma"),     # 17 rows
     # the "mma" odd shapes of chip_smoke.py's sweep
     (1, 8, 1, 70, 300, 48, True, 230, "mma"),     # group 8, D 48 (padded)
     (2, 4, 4, 130, 190, 128, True, 60, "mma"),    # group 1, D 128, offset
@@ -365,13 +365,13 @@ def test_flash_attention_close_to_plain_on_card(cuda, b, h, hkv, sq, skv, d,
                                                 causal, off, way, dtype):
     """Within ``fa.tolerance`` of the plain version, through the route's
     kernel (its counter moves, the other's does not); a zeroed output
-    fails that bound."""
+    fails that bound. "f32" also lies within ``fa.three_pass_bound``."""
     g = torch.Generator(device=cuda).manual_seed(sq + skv)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
                for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
     kw = dict(causal=causal, kv_offset=off)
     if dtype == torch.float32:
-        way = "simt"
+        way = "f32"
     assert fa.route(q, k) == way
     before, total = dict(fa.launches_by_route), fa.launches
     out = fa.flash_attention(q, k, v, **kw)
@@ -383,7 +383,95 @@ def test_flash_attention_close_to_plain_on_card(cuda, b, h, hkv, sq, skv, d,
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= bound).all()), float((diff - bound).max())
     assert not bool((ref.float().abs() <= bound).all())   # zeros fail
+    if way == "f32":                      # three TF32 passes, not one
+        tight = fa.three_pass_bound(ref)
+        assert bool((diff <= tight).all()), float((diff - tight).max())
     torch.cuda.synchronize()
+
+
+def _fa_case(cuda, b, h, hkv, sq, skv, d, dtype, view, seed):
+    """q, k, v on the card; with ``view``, [B, S, H, D] tensors read
+    through transposed views."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))
+    if view:
+        return [torch.randn((s[0], s[2], s[1], s[3]), generator=g,
+                            device=cuda).to(dtype).transpose(1, 2)
+                for s in shapes]
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in shapes]
+
+
+def _fa_on_route(q, k, v, way, kw):
+    """One call through ``way`` (its counter alone moves), within the
+    route's bound of the plain version, where a zeroed output fails."""
+    assert fa.route(q, k) == way
+    before = dict(fa.launches_by_route)
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches_by_route == {**before, way: before[way] + 1}
+    assert out.dtype == q.dtype and out.shape == q.shape
+    ref = fa.flash_attention_plain(q, k, v, **kw)
+    bound = fa.tolerance(q, k, v, ref, way, **kw)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    assert not bool((ref.float().abs() <= bound).all())   # zeros fail
+    if way == "f32":                      # three TF32 passes, not one
+        tight = fa.three_pass_bound(ref)
+        assert bool((diff <= tight).all()), float((diff - tight).max())
+    torch.cuda.synchronize()
+    return out
+
+
+# float32 edges of the "f32" route: b, h, hkv, sq, skv, d, causal,
+# kv_offset, [B, S, H, D] views
+F32_CASES = [
+    (2, 8, 2, 1, 1500, 64, True, 1499, False),  # decode: 12 tiles, 4 warps
+    (1, 8, 2, 1, 300, 64, True, 256, False),    # decode: last tile one key
+    (1, 4, 4, 65, 65, 64, True, 0, False),      # prefill: last tile one key
+    (2, 8, 2, 100, 100, 32, True, 0, False),    # D 32, GQA 4
+    (1, 4, 4, 70, 150, 48, True, 80, False),    # D 48 (padded), group 1
+    (1, 8, 8, 3, 500, 128, True, 497, False),   # D 128 decode (16-key slices)
+    (2, 4, 2, 130, 190, 128, True, 60, False),  # D 128 prefill (32-key tiles)
+    (1, 4, 2, 65, 64, 64, True, 0, False),      # Sq > Skv
+    (1, 4, 4, 200, 150, 32, True, 0, False),    # Sq > Skv, several blocks
+    (2, 32, 8, 128, 136, 64, True, 0, True),    # lm_f32 prefill, views
+    (4, 32, 8, 1, 136, 64, True, 129, True),    # lm_f32 decode, views
+    (1, 16, 2, 333, 333, 64, False, 0, False),  # bidirectional, group 8
+    (1, 4, 4, 1, 333, 64, False, 0, False),     # bidirectional decode
+    (1, 8, 1, 2, 700, 64, True, 600, False),    # group 8, 16 rows: decode
+    (1, 1, 1, 17, 300, 64, True, 200, False),   # 17 rows: a partial block
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,off,view", F32_CASES)
+def test_flash_attention_f32_route_on_card(cuda, b, h, hkv, sq, skv, d,
+                                           causal, off, view):
+    """Every float32 call takes "f32" (3xTF32 on the tensor cores) and
+    lies within 2e-4 + 2e-4 |plain| and within ``fa.three_pass_bound``
+    (a tenth of it, which one TF32 pass fails), at decode (the warps split the keys)
+    and prefill, through views of [B, S, H, D] tensors."""
+    q, k, v = _fa_case(cuda, b, h, hkv, sq, skv, d, torch.float32, view,
+                       seed=sq * 7 + skv)
+    _fa_on_route(q, k, v, "f32", dict(causal=causal, kv_offset=off))
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,off", [
+    (1, 1, 1, 17, 300, 64, 200),      # 17 rows
+    (1, 1, 1, 33, 300, 64, 200),      # 33 rows
+    (1, 4, 1, 15, 300, 64, 285),      # 60 rows, group 4
+    (1, 4, 2, 20, 130, 24, 40),       # D 24, 40 rows
+    (2, 8, 2, 5, 600, 40, 500),       # D 40, 20 rows
+    (1, 4, 4, 30, 200, 56, 100),      # D 56, 30 rows
+])
+def test_flash_attention_bf16_above_16_rows_take_mma_on_card(
+        cuda, b, h, hkv, sq, skv, d, off):
+    """Every bfloat16 call of more than 16 rows per kv head takes "mma",
+    which rounds P to bfloat16 as the TPU kernel does, in a partly filled
+    block and at a head dim padded 8 at a time: within the mma bound (it
+    has the 2^-8 (p @ |v|) term)."""
+    q, k, v = _fa_case(cuda, b, h, hkv, sq, skv, d, torch.bfloat16, False,
+                       seed=sq + d)
+    _fa_on_route(q, k, v, "mma", dict(causal=True, kv_offset=off))
 
 
 def test_flash_attention_split_reads_cache_views_on_card(cuda):
@@ -434,7 +522,11 @@ def test_flash_attention_reads_transposed_views_on_card(cuda):
 
 
 @pytest.mark.parametrize("f,v,d,b,l", [
-    (1, 1000, 64, 37, 1), (1, 500, 256, 64, 16), (3, 200, 64, 10, 4)])
+    (1, 1000, 64, 37, 1), (1, 500, 256, 64, 16), (3, 200, 64, 10, 4),
+    (26, 300, 64, 40, 1),       # stacked fields, 2 bags per warp (f32)
+    (1, 100, 3, 50, 5),         # D 3: the scalar path
+    (2, 300, 20, 40, 16),       # D 20: f32 vectors, bf16 scalar
+    (1, 64, 1024, 9, 40)])      # row passes, slots past one chunk
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_embedding_bag_equal_plain_on_card(cuda, f, v, d, b, l, dtype):
     """Bit-equal: both add in j order, rounding each product and sum to
@@ -450,6 +542,27 @@ def test_embedding_bag_equal_plain_on_card(cuda, f, v, d, b, l, dtype):
         table, idx, w = table[0], idx[:, 0].contiguous(), w[:, 0].contiguous()
     torch.testing.assert_close(eb.embedding_bag(table, idx, w),
                                eb.embedding_bag_plain(table, idx, w),
+                               rtol=0, atol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_scalar_path_on_card(cuda, dtype):
+    """A table that starts off a 16-byte boundary takes the scalar path:
+    bit-equal, with negative and past-the-end slots adding nothing."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    vocab, d = 400, 64
+    flat = torch.randn(vocab * d + 1, generator=g, device=cuda).to(dtype)
+    table = flat[1:].view(vocab, d)
+    assert table.is_contiguous() and table.data_ptr() % 16
+    idx = torch.randint(0, vocab, (33, 12), generator=g, device=cuda,
+                        dtype=torch.int32)
+    idx[0, 0], idx[1, 5], idx[2, 11] = -5, vocab, vocab + 7
+    w = torch.rand(33, 12, generator=g, device=cuda).to(dtype)
+    before = eb.launches
+    out = eb.embedding_bag(table, idx, w)
+    assert eb.launches == before + 1
+    torch.testing.assert_close(out, eb.embedding_bag_plain(table, idx, w),
                                rtol=0, atol=0)
     torch.cuda.synchronize()
 
