@@ -15,19 +15,26 @@ Phases, one JSON line each:
             beside the fp32 one: host build time, bytes per component and
             per doc, ratio to the fp32 bytes; tile pointers and exact
             maxima equal to the fp32 index's
+  stream_build  the same corpus streamed in 8 chunks of 2^17 docs
+            (``iter_chunks``) through ``StreamingIndexBuilder`` into a
+            temporary directory and finalized onto the card: every tensor
+            equal to the index_q8 phase's; add_chunk and finalize seconds,
+            spill bytes, bytes on the card; then served through K3
+            (chunked_fused) and K4 (chunked) by Retrievers opened with a
+            ``MetricsRegistry``, 4 batches of 16 at k=10 and k=100, ids,
+            scores, stats and launch counts bit-equal to the same searches
+            on the index_q8 index; the ``search_ms/kernel`` histogram (one
+            sample per search) and each batch's traversal trace attributes
+            (``obs.trace_exec.request_attributes``)
   kernels   each kernel (fp32: guided_score_chunk/_tile; q8:
             guided_score_chunk_q/_tile_q, all four in
             ``guided_score_tile.cu``) against its plain PyTorch version
             on real main-path inputs and odd shapes, bit for bit; times
-            beside the card's bound and, on the same inputs in turns, the
-            earlier design (``prev_ms``: the chunk template of
-            ``guided_score.cu`` / ``guided_score_q.cu``, called by source
-            name; for a tile kernel, on the tile as a chunk of one with
-            skip 0) and a launch that only writes zero rows (``floor_ms``:
-            for a chunk kernel, the new launcher with every skip flag set;
-            for a tile kernel, the earlier template with skip 1); the
-            chunk kernels also at each lane width of CHUNK_WIDTHS
-            (``lane_width_ms``)
+            beside the card's bound and, on the same inputs in turns, a
+            launch that only writes zero rows (``floor_ms``: the chunk
+            launcher with every skip flag set; for a tile kernel, on the
+            tile as a chunk of one tile); the chunk kernels also at each
+            lane width of CHUNK_WIDTHS (``lane_width_ms``)
   serve     per index, Retriever.search on 4 batches of 16 queries at k=10
             and k=100 through the chunk kernel (traversal="chunked_fused")
             and the tile kernel (traversal="chunked"), with launch counts;
@@ -36,11 +43,6 @@ Phases, one JSON line each:
   profile   one batch of each path under the profiler (device busy and idle
             share, launches, host syncs, top device ops, the port's own
             kernels); fp32 at k=10 and k=100, q8 at k=10
-  profile_tile_ab  the tile path at k=10 with the tile kernels' earlier
-            design patched in, in turns with the kernel (earlier, kernel,
-            kernel, earlier): device busy of the same batch on one card
-  profile_chunk_ab  the same for the chunk path (chunked_fused) at k=10
-            with the earlier chunk template patched in
   rank_safe per index, a rank-safe chunked_fused run against an exhaustive
             top-k computed on the card (q8: over the dequantized postings)
   lm        granite-3-2b at full width (fp32 master, bf16 compute):
@@ -56,8 +58,7 @@ Phases, one JSON line each:
             configs' dtype): prefill 4 x 128, 8 decode steps, every K6
             call on its "f32" route (3xTF32 on the tensor cores), against
             a cache-free forward; K6 checked and timed on the layer-0
-            inputs of the prefill and of a decode step, beside the simt
-            kernel on the same inputs (``prev_ms``), also within
+            inputs of the prefill and of a decode step, also within
             ``fa.three_pass_bound`` (2e-5 + 2e-5 |plain|), where the same
             attention with one TF32 pass per product must fail it
   recsys    dlrm-rm2, two-tower-retrieval and bert4rec at full width:
@@ -69,12 +70,10 @@ Phases, one JSON line each:
             inputs (captured from the lm and recsys runs, where a zeroed
             output and one without each row's last key tile are shown to
             fail the route's tolerance) and odd shapes, each K6 case with
-            its route; times beside the bound, the plain version, one
-            PyTorch library call and the earlier kernel on the same inputs
-            (K6: the simt kernel, ``flash_attention.cu``, as ``simt_ms`` on
-            mma and split and ``prev_ms`` on f32; K5: the one-thread-per-
-            element kernel, ``prev_ms``); K5's odd shapes include two on
-            its scalar path (D 3, a table off a 16-byte boundary)
+            its route; times beside the bound, the plain version and one
+            PyTorch library call on the same inputs; K5's odd shapes
+            include two on its scalar path (D 3, a table off a 16-byte
+            boundary)
 
 Then the six kernels' summary line (flash_attention once, with its routes
 mma, split and f32), the nvidia-smi line and, last, the one-line verdict.
@@ -388,71 +387,21 @@ def kernel_args(ctx, x, chunk: bool) -> tuple:
             x.th_lo, ctx.alpha, ctx.beta, ctx.gamma)
 
 
-@functools.lru_cache(maxsize=None)
-def skip_flags(b: int, skip: int, device) -> torch.Tensor:
-    return torch.full((b, 1), skip, dtype=torch.int32, device=device)
-
-
-# chunk launcher -> the source of its earlier template
-EARLIER_CHUNK_SOURCE = {"guided_score_chunk_launch": "guided_score.cu",
-                        "guided_score_chunk_q_launch": "guided_score_q.cu"}
-
-
-@contextlib.contextmanager
-def earlier_chunk_template():
-    """Within the block the chunk wrappers launch the earlier chunk
-    template (``guided_score.cu`` / ``guided_score_q.cu``, blocks of
-    ``BLOCK_S`` slots, terms one after the other), called by source name,
-    in place of ``guided_score_tile.cu``. For comparisons in one run on one
-    card."""
-    from repro_torch.kernels import guided_score as gs
-    call = gs._call
-
-    def earlier(source, fn_name, inputs, coefs, out, sizes, block_s):
-        if fn_name in EARLIER_CHUNK_SOURCE:
-            source, block_s = EARLIER_CHUNK_SOURCE[fn_name], gs.BLOCK_S
-        return call(source, fn_name, inputs, coefs, out, sizes, block_s)
-    gs._call = earlier
-    try:
-        yield
-    finally:
-        gs._call = call
-
-
-@contextlib.contextmanager
-def tile_kernels_as_chunk(skip: int):
-    """Within the block the tile wrappers run each tile through the earlier
-    chunk template (``earlier_chunk_template``), as a chunk of one tile
-    with its skip flag set to ``skip``: with 0 the design the tile kernels
-    had before ``guided_score_tile.cu`` (the chunk template plus one flag
-    read), with 1 a launch that only writes the zero rows. For comparisons
-    in one run on one card."""
-    from repro_torch.kernels import guided_score as gs
-    launch, launch_q = gs._launch, gs._launch_q
-
-    def redirect(orig, chunk_name):
-        def call(fn_name, *args, b, c, tile_size):
-            if "tile" not in fn_name:
-                return orig(fn_name, *args, b=b, c=c, tile_size=tile_size)
-            *rows, ess, pb, _, th, alpha, beta, gamma = args
-            n_rows = 5 if "_q" in fn_name else 3
-            return orig(chunk_name, *(t.unsqueeze(1) for t in rows[:n_rows]),
-                        *rows[n_rows:], ess.unsqueeze(1), pb.unsqueeze(1),
-                        skip_flags(b, skip, th.device), th, alpha, beta,
-                        gamma, b=b, c=1, tile_size=tile_size)[:, 0]
-        return call
-    gs._launch = redirect(launch, "guided_score_chunk_launch")
-    gs._launch_q = redirect(launch_q, "guided_score_chunk_q_launch")
-    try:
-        with earlier_chunk_template():
-            yield
-    finally:
-        gs._launch, gs._launch_q = launch, launch_q
+def tile_as_skipped_chunk(ctx, x) -> tuple:
+    """The chunk launcher's arguments for the tile ``x`` (StepInputs of one
+    tile per query) as a chunk of one tile with its skip flag set: a launch
+    of the tile's grid that only writes the zero rows (K2/K4's
+    ``floor_ms``)."""
+    one = x._replace(rows=tuple(r.unsqueeze(1) for r in x.rows),
+                     essential=x.essential.unsqueeze(1),
+                     prefix_beta=x.prefix_beta.unsqueeze(1),
+                     skip=torch.ones_like(x.skip).unsqueeze(1))
+    return kernel_args(ctx, one, True)
 
 
 def called_within(context, fn, *args):
-    """``fn()`` (a wrapper's call) within ``context(*args)``: a kernel's
-    earlier design or another lane width, for comparisons in one run."""
+    """``fn()`` (a wrapper's call) within ``context(*args)``: another lane
+    width, for comparisons in one run."""
     with context(*args):
         return fn()
 
@@ -481,7 +430,7 @@ def phase_kernels(indexes, corpus, dev):
     from repro_torch.kernels import guided_score as gs
 
     S = indexes["fp32"].tile_size
-    main, prev_floor, ctxs = {}, {}, {}
+    main, floor, ctxs = {}, {}, {}
     for label, (chunk_name, tile_name) in (
             ("fp32", ("guided_score_chunk", "guided_score_tile")),
             ("q8", ("guided_score_chunk_q", "guided_score_tile_q"))):
@@ -496,25 +445,18 @@ def phase_kernels(indexes, corpus, dev):
             main[name] = (functools.partial(kern, *args, tile_size=S),
                           functools.partial(plain, *args, tile_size=S),
                           bnd(x, S))
-        # K1/K3: the earlier template by source name; the new launcher with
-        # every tile skipped. K2/K4: the earlier template on the tile as a
-        # chunk of one, skip 0 and skip 1.
-        prev_floor[chunk_name] = (
-            functools.partial(called_within, earlier_chunk_template,
-                              main[chunk_name][0]),
-            functools.partial(getattr(gs, chunk_name),
-                              *kernel_args(ctx, x1._replace(
-                                  skip=torch.ones_like(x1.skip)), True),
-                              tile_size=S))
-        prev_floor[tile_name] = tuple(
-            functools.partial(called_within, tile_kernels_as_chunk,
-                              main[tile_name][0], flag)
-            for flag in (0, 1))
+        # the chunk launcher writing zero rows only: K1/K3 with every tile
+        # of the chunk skipped, K2/K4 on the tile as a skipped chunk of one
+        floor[chunk_name] = functools.partial(
+            getattr(gs, chunk_name), *kernel_args(ctx, x1._replace(
+                skip=torch.ones_like(x1.skip)), True), tile_size=S)
+        floor[tile_name] = functools.partial(
+            getattr(gs, chunk_name), *tile_as_skipped_chunk(ctx, x2),
+            tile_size=S)
     errs = {name: compare(f"{name} main", kern(), plain())
             for name, (kern, plain, _) in main.items()}
-    for name, (prev, floor) in prev_floor.items():
-        compare(f"{name} main, earlier design", prev(), main[name][0]())
-        require(not bool(floor().any()), f"{name} floor: nonzero output")
+    for name, fn in floor.items():
+        require(not bool(fn().any()), f"{name} floor: nonzero output")
     torch.cuda.synchronize()
 
     # Odd shapes: Nq not a power of 2, P < S, S below block_s, S not a
@@ -606,14 +548,11 @@ def phase_kernels(indexes, corpus, dev):
         result[name] = {"max_abs_err": errs[name], **timings(kern),
                         "plain_ms": t_plain["ms"],
                         "plain_event_ms": t_plain["event_ms"], **bnd}
-    for name, (prev, floor) in prev_floor.items():
-        # in turns on the same inputs: earlier design, kernel, write-only
-        # floor, kernel, earlier design
-        t_prev = [timings(prev)["ms"]]
+    for name, fn in floor.items():
+        # in turns on the same inputs: kernel, write-only floor, kernel
         t_kern = [result[name]["ms"]]
-        t_floor = timings(floor)["ms"]
+        t_floor = timings(fn)["ms"]
         t_kern.append(timings(main[name][0])["ms"])
-        t_prev.append(timings(prev)["ms"])
         shape = main[name][2]["shape"]
         if "chunk" in name:
             # the chunk kernel at each lane width, bit-equal, in turns
@@ -629,9 +568,7 @@ def phase_kernels(indexes, corpus, dev):
             result[name]["lane_width_ms"] = {
                 str(w): statistics.mean(v) for w, v in runs.items()}
         result[name].update(
-            ms=statistics.mean(t_kern), ms_runs=t_kern,
-            prev_ms=statistics.mean(t_prev), prev_ms_runs=t_prev,
-            floor_ms=t_floor,
+            ms=statistics.mean(t_kern), ms_runs=t_kern, floor_ms=t_floor,
             lane_width=(gs.chunk_lane_width(shape[-2], S, math.prod(
                 shape[:2])) if "chunk" in name
                 else gs.tile_lane_width(shape[-2], S)))
@@ -837,21 +774,6 @@ def phase_serve(label, index, corpus, dev):
          **{name: [profile_search(r, corpus, k) for k in PROFILE_KS[label]]
             for name, r in paths})
 
-    # Each path at k=10 with its kernel's earlier design patched in, in
-    # turns with the kernel: earlier, kernel, kernel, earlier.
-    for phase, (name, r), earlier in (
-            ("profile_chunk_ab", paths[0], earlier_chunk_template),
-            ("profile_tile_ab", paths[1],
-             functools.partial(tile_kernels_as_chunk, 0))):
-        ab = []
-        for design in ("earlier", "kernel", "kernel", "earlier"):
-            with (earlier() if design == "earlier"
-                  else contextlib.nullcontext()):
-                prof = profile_search(r, corpus, KS[0])
-            ab.append({"design": design, **{f: prof[f] for f in (
-                "wall_ms_profiled", "device_busy_ms", "device_idle_share",
-                "device_ops", "port_kernels")}})
-        emit(phase, index=label, path=name, k=KS[0], runs=ab)
     return launches, served
 
 
@@ -891,6 +813,117 @@ def phase_rank_safe(label, index, postings, corpus, dev):
          ids_differing_within_tie_tolerance={str(k): v
                                              for k, v in mism.items()},
          tolerance="rtol 2e-5, atol 1e-4")
+
+
+# --------------------------------------------------------------------------
+# stream_build: the streaming builder and the observability layer
+# --------------------------------------------------------------------------
+
+STREAM_CHUNK_DOCS = 2 ** 17
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def phase_stream_build(corpus, q8, smi: str, dev) -> None:
+    """The corpus streamed chunk by chunk through ``StreamingIndexBuilder``
+    (spilled to a temporary directory) and finalized onto the card, held
+    equal to ``q8`` (``compress_index`` of the same postings); then served
+    through K3 and K4 with a metrics registry, bit-equal to the same
+    searches on ``q8``. The streamed index is freed on return."""
+    import tempfile
+
+    from repro_torch.core import twolevel
+    from repro_torch.core.traversal import TRACE_STAT_KEYS
+    from repro_torch.data import StreamingIndexBuilder
+    from repro_torch.index.compressed import SCALAR_FIELDS, TENSOR_FIELDS
+    from repro_torch.kernels import guided_score as gs
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs import trace_exec
+    from repro_torch.retrieval import Retriever
+
+    add_s, n_chunks = [], 0
+    with tempfile.TemporaryDirectory() as spill:
+        builder = StreamingIndexBuilder(spill, n_terms=corpus.n_terms,
+                                        tile_size=q8.tile_size,
+                                        chunk_docs=STREAM_CHUNK_DOCS)
+        t0 = time.perf_counter()
+        for chunk in corpus.iter_chunks(STREAM_CHUNK_DOCS):
+            t1 = time.perf_counter()
+            require(builder.add_chunk(chunk), f"chunk {chunk.chunk_id} "
+                                              f"already recorded")
+            add_s.append(time.perf_counter() - t1)
+            n_chunks += 1
+        stream_s = time.perf_counter() - t0
+        spill_bytes = dir_bytes(spill)
+        t0 = time.perf_counter()
+        streamed = builder.finalize()
+        torch.cuda.synchronize()
+        finalize_s = time.perf_counter() - t0
+    require(streamed.device == q8.device,
+            f"finalize: index on {streamed.device}, not {q8.device}")
+    for f in SCALAR_FIELDS:
+        require(getattr(streamed, f) == getattr(q8, f),
+                f"streamed {f} {getattr(streamed, f)} != {getattr(q8, f)}")
+    for f in TENSOR_FIELDS:
+        require(torch.equal(getattr(streamed, f), getattr(q8, f)),
+                f"streamed {f} differs from compress_index's")
+    require(streamed.orig_of_new is None and q8.orig_of_new is None,
+            "streamed index: unexpected doc reordering")
+
+    fast = twolevel.fast()
+    paths = {}
+    for name, traversal in PATHS["q8"]:
+        # the same searches on the compress_index index first (which also
+        # warms the path), then the streamed index's: the main path's run
+        counts, resps, registry = {}, {}, MetricsRegistry()
+        for label, index, metrics in (("compress_index", q8, None),
+                                      ("streamed", streamed, registry)):
+            r = Retriever.open(index, fast, engine="kernel",
+                               traversal=traversal, device=dev,
+                               metrics=metrics)
+            gs.reset_launches()
+            resps[label] = {k: run_batches(r, corpus, k) for k in KS}
+            counts[label] = {fn.__name__: fn.launches for fn in gs.KERNELS}
+        require(counts["streamed"][name] > 0, f"stream_build: {name} never "
+                                              f"launched")
+        require(counts["streamed"] == counts["compress_index"],
+                f"stream_build {name}: launches {counts['streamed']} vs "
+                f"{counts['compress_index']} on the compress_index index")
+        for k in KS:
+            for a, b in zip(resps["streamed"][k], resps["compress_index"][k]):
+                require(np.array_equal(a.ids, b.ids), f"{name} k={k}: ids")
+                require(a.scores.tobytes() == b.scores.tobytes(),
+                        f"{name} k={k}: scores not bit-equal")
+                require(set(a.stats) == set(b.stats), f"{name}: stat keys")
+                for key in a.stats:
+                    require(np.asarray(a.stats[key]).tobytes()
+                            == np.asarray(b.stats[key]).tobytes(),
+                            f"{name} k={k}: stat {key} differs")
+        hist = registry.histogram("search_ms/kernel")
+        n_searches = N_BATCHES * len(KS)
+        require(hist.n == n_searches, f"{name}: search_ms/kernel holds "
+                                      f"{hist.n} samples, {n_searches} "
+                                      f"searches ran")
+        paths[name] = {
+            "traversal": traversal, "launches": counts["streamed"],
+            "search_ms": {"count": hist.n, "p50_ms": hist.quantile(0.5),
+                          "p99_ms": hist.quantile(0.99),
+                          "summary": hist.summary()},
+            **{f"k{k}": [{"batch_ms": r.latency_ms,
+                          **trace_exec.request_attributes(r.stats)}
+                         for r in resps["streamed"][k]] for k in KS}}
+    emit("stream_build", n_docs=streamed.n_docs, chunk_docs=STREAM_CHUNK_DOCS,
+         chunks=n_chunks, tile_size=streamed.tile_size,
+         add_chunk_seconds={"sum": sum(add_s), "per_chunk": add_s},
+         stream_seconds=stream_s, finalize_seconds=finalize_s,
+         spill_bytes=spill_bytes, device_bytes=streamed.nbytes(),
+         equal_to_compress_index="every tensor field, n_docs, n_tiles, nnz, "
+                                 "pad_len",
+         serve=paths, serve_check="ids, scores, every stat and launch "
+                                  "counts bit-equal to compress_index's",
+         trace_stat_keys=list(TRACE_STAT_KEYS), nvidia_smi=smi)
 
 
 # --------------------------------------------------------------------------
@@ -1161,9 +1194,7 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
     """K6 on main-path inputs: checked against its plain version (one
     sequence at a time where the plain version's float32 scores of all
     sequences would not fit beside the model), timed beside its bound,
-    the plain version and SDPA, and the simt kernel's time on the same
-    inputs (uncounted): ``simt_ms`` on the mma and split routes, ``prev_ms``
-    on f32, whose earlier design it is."""
+    the plain version and SDPA."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = args
     # held to the plain version that keeps P in float32, which
@@ -1216,7 +1247,6 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
     del ref, tol, keep, out
     lib = sdpa_call(q, k, v, causal, off)
     t_k, t_p = timings(kern), timings(plain)
-    t_k["prev_ms" if way == "f32" else "simt_ms"] = simt_ms(q, k, v, kwargs)
     return {"route": way, "max_abs_err": err,
             "wrong_outputs_rejected": rejected, **passes, **t_k,
             "plain_ms": t_p["ms"], "plain_event_ms": t_p["event_ms"],
@@ -1225,23 +1255,12 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
             **fa_bound(q, k, causal, off)}
 
 
-def simt_ms(q, k, v, kwargs) -> float:
-    """The simt kernel (``flash_attention.cu``, no route's) on these inputs,
-    uncounted: the yardstick of the other routes."""
-    from repro_torch.kernels import flash_attention as fa
-    out = torch.empty_like(q)
-    return timings(functools.partial(
-        fa._launch, "simt", q, k, v, out, kwargs.get("causal", True),
-        kwargs.get("sm_scale") or q.shape[-1] ** -0.5,
-        kwargs.get("kv_offset", 0)))["ms"]
-
-
 def rotating_fa(q, layers, kwargs) -> dict:
     """K6 at decode on inputs that rotate over every layer's cache
     (``layers``: one (k, v) view per layer; 1.35 GB at the LM's decode
     shape, far past the 50 MB L2), so each call reads its K/V from device
-    memory as a decode step does: the route's kernel, the simt kernel (both
-    uncounted) and SDPA, each timed over one pass through all layers."""
+    memory as a decode step does: the route's kernel (uncounted) and SDPA,
+    each timed over one pass through all layers."""
     from repro_torch.kernels import flash_attention as fa
     causal, off = kwargs.get("causal", True), kwargs.get("kv_offset", 0)
     scale = kwargs.get("sm_scale") or q.shape[-1] ** -0.5
@@ -1252,11 +1271,9 @@ def rotating_fa(q, layers, kwargs) -> dict:
         it = itertools.cycle(calls)
         return lambda: next(it)()
 
-    ms = {}
-    for name, w in (("ms", way), ("simt_ms", "simt")):
-        ms[name] = device_ms(rotate([functools.partial(
-            fa._launch, w, q, k, v, out, causal, scale, off)
-            for k, v in layers]), _cycles_per_ms(), runs=len(layers))["ms"]
+    ms = {"ms": device_ms(rotate([functools.partial(
+        fa._launch, way, q, k, v, out, causal, scale, off)
+        for k, v in layers]), _cycles_per_ms(), runs=len(layers))["ms"]}
     lib = [sdpa_call(q, k, v, causal, off) for k, v in layers]
     ms["library_ms"] = (None if lib[0] is None else device_ms(
         rotate(lib), _cycles_per_ms(), runs=len(layers))["ms"])
@@ -1270,33 +1287,20 @@ def rotating_fa(q, layers, kwargs) -> dict:
 
 def measure_eb(args) -> dict:
     """K5 on main-path inputs: bit-equal to its plain version, timed beside
-    its bound, the plain version, one F.embedding_bag call over the
-    flattened tables and the earlier kernel (``prev_ms``, uncounted, also
-    bit-equal)."""
+    its bound, the plain version and one F.embedding_bag call over the
+    flattened tables."""
     import torch.nn.functional as F
-    from repro_torch.kernels import build
     from repro_torch.kernels import embedding_bag as eb
     table, idx, w = args
     out = eb.embedding_bag(table, idx, w)
     require(torch.equal(out, eb.embedding_bag_plain(table, idx, w)),
             "embedding_bag main: differs from its plain version")
-    tab, ix, w3, _ = eb._fields(table, idx, w)
-    prev_out = torch.empty_like(out)
-
-    def prev():
-        build.launch(eb.SOURCE, "embedding_bag_prev_launch", tab.device, tab,
-                     ix, w3, prev_out, eb._DTYPES[tab.dtype],
-                     ix.shape[0] * tab.shape[0], tab.shape[0], ix.shape[2],
-                     tab.shape[1], tab.shape[2])
-    prev()
-    require(torch.equal(prev_out, out),
-            "embedding_bag main: the earlier kernel differs")
+    tab, ix, _, _ = eb._fields(table, idx, w)
     off = (torch.arange(tab.shape[0], device=ix.device) * tab.shape[1])
     flat_idx = (ix.long() + off[None, :, None]).reshape(-1, ix.shape[-1])
     flat_w = w.reshape(-1, ix.shape[-1])
     flat_tab = tab.reshape(-1, tab.shape[-1])
     t_k = timings(functools.partial(eb.embedding_bag, table, idx, w))
-    t_k["prev_ms"] = timings(prev)["ms"]
     t_p = timings(functools.partial(eb.embedding_bag_plain, table, idx, w))
     t_l = timings(lambda: F.embedding_bag(flat_idx, flat_tab, mode="sum",
                                           per_sample_weights=flat_w))
@@ -1724,7 +1728,7 @@ def phase_recsys(seed: int, dev) -> dict:
 def phase_model_kernels(dev) -> list:
     """K5 and K6 against their plain versions on odd shapes; each K6 case
     launches the route ``fa.route`` names for it, and only that one, and is
-    timed beside the simt kernel on the same inputs."""
+    timed."""
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(4321)
@@ -1801,8 +1805,7 @@ def phase_model_kernels(dev) -> list:
                           name, out, ref, fa_tolerance(q, k, v, ref, kw)),
                       "ms": timings(functools.partial(
                           fa._launch, way, q, k, v, out, causal,
-                          d ** -0.5, off))["ms"],
-                      "simt_ms": simt_ms(q, k, v, kw)})
+                          d ** -0.5, off))["ms"]})
     require({r["route"] for r in sweep} == set(fa.ROUTES),
             "flash_attention sweep: a route never ran")
     # the last two rows take the scalar path: D 3, and a table that
@@ -1907,6 +1910,8 @@ def main() -> int:
          ratio_to_fp32=nb["total"] / q8.fp32_nbytes(),
          runs_by_gap_width={str(w): int(widths[w]) for w in WIDTH_MIN},
          checks="tile_ptr, tile and list maxima identical to fp32")
+    phase_stream_build(corpus, q8, smi, dev)
+    torch.cuda.empty_cache()
 
     indexes = {"fp32": index, "q8": q8}
     kern = phase_kernels(indexes, corpus, dev)
@@ -1961,8 +1966,7 @@ def main() -> int:
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": None,
-         **{f: kern[name][f] for f in ("prev_ms", "floor_ms")
-            if f in kern[name]}}
+         "floor_ms": kern[name]["floor_ms"]}
         for name, (cu, line) in where.items()]}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, cu, line in (("flash_attention", "flash_attention_mma.cu", 29),
@@ -1978,9 +1982,7 @@ def main() -> int:
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "at": m["shape"],
-            **{f: m[f] for f in ("prev_ms", "simt_ms") if f in m},
-            "other": {k: {f: o[f] for f in timed + ("prev_ms", "simt_ms")
-                          if f in o}
+            "other": {k: {f: o[f] for f in timed if f in o}
                       for k, o in model_other[name].items()}})
         require(model_counts[name] > 0, f"{name} never launched on its path")
     # K6 by route: mma at prefill (and bert4rec), split at decode, f32 at
@@ -1996,8 +1998,7 @@ def main() -> int:
                   [o["max_abs_err"] for o in fa_main[way].values()]
                   + [r["max_abs_err"] for r in sweep
                      if r.get("route") == way]),
-              **{k: {f: o[f] for f in timed + ("simt_ms", "prev_ms",
-                                                "rotating") if f in o}
+              **{k: {f: o[f] for f in timed + ("rotating",) if f in o}
                  for k, o in fa_main[way].items()}}
         for way in fa_main}
     for way, n in route_counts.items():

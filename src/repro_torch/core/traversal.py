@@ -63,6 +63,12 @@ from .twolevel import TwoLevelParams, resolve_k
 STAT_KEYS = ("docs_present", "docs_survived", "docs_frozen",
              "postings_touched", "tiles_visited")
 
+# The per-query counters worth attaching to a request's execute span: the
+# executor stats plus the chunked traversal's dispatch counts (absent from
+# engines that do not produce them). Read by ``repro_torch.obs.trace_exec``;
+# keep in step with retrieve_batched's stats.
+TRACE_STAT_KEYS = STAT_KEYS + ("n_tiles", "chunks_dispatched", "n_chunks")
+
 TRAVERSALS = ("full", "chunked", "chunked_fused")
 
 

@@ -1,1 +1,3 @@
-from .corpus import SyntheticCorpus, make_corpus  # noqa: F401
+from .corpus import (CorpusChunk, SyntheticCorpus, make_corpus,  # noqa: F401
+                     synthetic_chunk_stream)
+from .builder import StreamingIndexBuilder  # noqa: F401

@@ -34,6 +34,24 @@ from ..core.sparse import SparseModel, from_coo
 
 
 @dataclasses.dataclass
+class CorpusChunk:
+    """One contiguous docid range of a corpus, as term-major COO postings.
+
+    The unit ``repro_torch.data.StreamingIndexBuilder`` consumes: postings
+    are sorted by (term, docid) with docids *chunk-local* (global docid =
+    ``doc_start + docids[i]``). Chunks tile the docid space contiguously,
+    so a chunk's tiles are a contiguous global tile range.
+    """
+    chunk_id: int
+    doc_start: int
+    n_docs: int
+    terms: np.ndarray    # [nnz] int64 term ids, non-decreasing
+    docids: np.ndarray   # [nnz] int32 chunk-local, sorted within term
+    w_b: np.ndarray      # [nnz] f32
+    w_l: np.ndarray      # [nnz] f32
+
+
+@dataclasses.dataclass
 class SyntheticCorpus:
     n_docs: int
     n_terms: int
@@ -55,6 +73,27 @@ class SyntheticCorpus:
     def merged(self, fill: str = "scaled"):
         return merge_models(self.learned, self.bm25, fill,
                             bm25_stats=self.bm25_stats)
+
+    def iter_chunks(self, chunk_docs: int, fill: str = "scaled"):
+        """Yield the corpus as ``CorpusChunk``s of ``chunk_docs`` docs.
+
+        Slices the *same* merged postings the one-shot builders consume,
+        so streaming a seeded corpus chunk by chunk reproduces the one-shot
+        index bit for bit. The last chunk may be short.
+        """
+        if chunk_docs < 1:
+            raise ValueError(f"chunk_docs must be >= 1, got {chunk_docs}")
+        merged = self.merged(fill)
+        term_of = np.repeat(np.arange(self.n_terms, dtype=np.int64),
+                            np.diff(merged.indptr))
+        for cid, d0 in enumerate(range(0, self.n_docs, chunk_docs)):
+            d1 = min(d0 + chunk_docs, self.n_docs)
+            m = (merged.docids >= d0) & (merged.docids < d1)
+            yield CorpusChunk(
+                chunk_id=cid, doc_start=d0, n_docs=d1 - d0,
+                terms=term_of[m],
+                docids=(merged.docids[m] - d0).astype(np.int32),
+                w_b=merged.w_b[m], w_l=merged.w_l[m])
 
 
 PRESETS = {
@@ -202,3 +241,35 @@ def make_corpus(preset: str = "splade_like", n_docs: int = 8192,
                            q_weights_l=qw_l, q_weights_b=qw_b, qrels=qrels,
                            qrels_graded=qrels_graded,
                            q_distractors=q_distractors)
+
+
+def synthetic_chunk_stream(n_chunks: int, chunk_docs: int, n_terms: int,
+                           avg_doc_terms: int = 32, seed: int = 0,
+                           start_chunk: int = 0, zipf_a: float = 1.1):
+    """A million-scale corpus as a resumable chunk stream.
+
+    Each chunk is a pure function of ``(seed, chunk_id)`` (drawn from
+    ``default_rng([seed, chunk_id])``), so a restarted build replays
+    exactly the chunks it has not applied, with no upstream state to
+    rewind. The corpus never exists whole: peak memory is one chunk.
+    Postings follow ``make_corpus``'s lexical core (Zipf terms, geometric
+    tf, log-normal learned reweighting) without queries or relevance.
+    ``zipf_a`` sets the term-frequency skew.
+    """
+    zipf_p = 1.0 / np.arange(1, n_terms + 1) ** zipf_a
+    zipf_p /= zipf_p.sum()
+    for cid in range(start_chunk, n_chunks):
+        rng = np.random.default_rng(np.random.SeedSequence([seed, cid]))
+        n_base = chunk_docs * avg_doc_terms
+        terms = rng.choice(n_terms, size=n_base, p=zipf_p).astype(np.int64)
+        docs = rng.integers(0, chunk_docs, size=n_base).astype(np.int64)
+        key = np.unique(terms * chunk_docs + docs)
+        terms = (key // chunk_docs).astype(np.int64)
+        docs = (key % chunk_docs).astype(np.int32)
+        tf = (1 + rng.geometric(0.55, size=len(key))).astype(np.float32)
+        w_b = (tf / (tf + 1.2)).astype(np.float32)
+        w_l = (w_b * np.exp(rng.normal(0.0, 0.4, size=len(key)))
+               ).astype(np.float32)
+        yield CorpusChunk(chunk_id=cid, doc_start=cid * chunk_docs,
+                          n_docs=chunk_docs, terms=terms, docids=docs,
+                          w_b=w_b, w_l=w_l)

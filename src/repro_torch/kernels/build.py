@@ -29,11 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # source -> flags added to NVCC_FLAGS for it
 SOURCE_FLAGS = {
-    "guided_score.cu": ("-fmad=false",),
-    "guided_score_q.cu": ("-fmad=false",),
     "guided_score_tile.cu": ("-fmad=false",),
     "embedding_bag.cu": ("-fmad=false",),
-    "flash_attention.cu": (),
     "flash_attention_mma.cu": (),
     "flash_attention_split.cu": (),
     "flash_attention_f32.cu": (),
@@ -53,13 +50,6 @@ _GUIDED_ARGS = [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _P,
 _GUIDED_Q_ARGS = [_P] * 11 + [_F, _F, _F, _P] + [_I] * 7 + [_P]
 _L = ctypes.c_longlong
 SIGNATURES = {
-    # the earlier chunk template, launched only by chip_smoke.py
-    "guided_score.cu": {
-        "guided_score_chunk_launch": _GUIDED_ARGS,
-    },
-    "guided_score_q.cu": {
-        "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
-    },
     "guided_score_tile.cu": {
         "guided_score_tile_launch": _GUIDED_ARGS,
         "guided_score_chunk_launch": _GUIDED_ARGS,
@@ -67,21 +57,12 @@ SIGNATURES = {
         "guided_score_chunk_q_launch": _GUIDED_Q_ARGS,
         "error_string": [_I],
     },
-    # table, idx, w, out, dtype, n_bags, n_fields, bag_len, vocab, d,
-    # stream; the earlier kernel (one thread per output element) is
-    # launched only by chip_smoke.py
+    # table, idx, w, out, dtype, n_bags, n_fields, bag_len, vocab, d, stream
     "embedding_bag.cu": {
         "embedding_bag_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _L, _I, _P],
-        "embedding_bag_prev_launch": [_P, _P, _P, _P, _I, _L, _I, _I, _L,
-                                      _I, _P],
     },
-    # q, k, v, o, dtype, batch, h, hkv, sq, skv, d, 12 strides (q, k, v, o:
-    # batch, head, position), causal, kv_offset, sm_scale, stream
-    "flash_attention.cu": {
-        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_L] * 12
-                                  + [_I, _I, _F, _P],
-    },
-    # the same without dtype (bfloat16 only)
+    # q, k, v, o, batch, h, hkv, sq, skv, d, 12 strides (q, k, v, o: batch,
+    # head, position), causal, kv_offset, sm_scale, stream (bfloat16 only)
     "flash_attention_mma.cu": {
         "flash_attention_mma_launch": [_P] * 4 + [_I] * 6 + [_L] * 12
                                       + [_I, _I, _F, _P],

@@ -42,16 +42,12 @@
 //     same kernel with one element per vector (the scalar path).
 //   * Blocks of 64 threads, so that a batch of 512 bags of a warp each is
 //     256 blocks on the 132 SMs.
-// The earlier kernel (one thread per output element, each re-reading the
-// bag's indices and weights, a dependent row load per slot) stays as
-// embedding_bag_prev_launch, a yardstick that only chip_smoke.py launches.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 namespace {
 
 constexpr int kThreads = 64;       // block of the kernel
-constexpr int kPrevThreads = 256;  // block of the earlier kernel
 constexpr int kBatch = 8;          // slots whose row loads go out together
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -162,30 +158,6 @@ embedding_bag_kernel(const T* __restrict__ table, const int* __restrict__ idx,
   }
 }
 
-// The earlier kernel: one thread per output element (bag, column).
-template <typename T>
-__global__ void __launch_bounds__(kPrevThreads)
-embedding_bag_prev_kernel(const T* __restrict__ table,
-                          const int* __restrict__ idx,
-                          const T* __restrict__ w, T* __restrict__ out,
-                          long long n_out, int n_fields, int bag_len,
-                          long long vocab, int d) {
-  const long long t = (long long)blockIdx.x * kPrevThreads + threadIdx.x;
-  if (t >= n_out) return;
-  const long long bag = t / d;
-  const int col = (int)(t - bag * d);
-  const T* tab = table + (bag % n_fields) * vocab * d + col;
-  const int* ib = idx + bag * bag_len;
-  const T* wb = w + bag * bag_len;
-  T acc = T(0.f);
-  for (int j = 0; j < bag_len; ++j) {
-    const int i = __ldg(ib + j);
-    if (i >= 0 && i < vocab)
-      acc = madd(acc, __ldg(tab + (long long)i * d), to_float(__ldg(wb + j)));
-  }
-  out[t] = acc;
-}
-
 template <typename T, int E, int NV>
 cudaError_t launch_groups(const T* table, const int* idx, const T* w, T* out,
                           long long n_bags, int n_fields, int bag_len,
@@ -227,20 +199,6 @@ cudaError_t launch(const void* table, const int* idx, const void* w,
                                       bag_len, vocab, d, lpb_log2, stream);
 }
 
-template <typename T>
-cudaError_t launch_prev(const void* table, const int* idx, const void* w,
-                        void* out, long long n_bags, int n_fields,
-                        int bag_len, long long vocab, int d,
-                        cudaStream_t stream) {
-  const long long n_out = n_bags * d;
-  const long long blocks = (n_out + kPrevThreads - 1) / kPrevThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  embedding_bag_prev_kernel<T><<<(unsigned)blocks, kPrevThreads, 0, stream>>>(
-      static_cast<const T*>(table), idx, static_cast<const T*>(w),
-      static_cast<T*>(out), n_out, n_fields, bag_len, vocab, d);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -257,21 +215,6 @@ int embedding_bag_launch(const void* table, const void* idx, const void* w,
                                  bag_len, vocab, d, s)
                  : launch<__nv_bfloat16>(table, ix, w, out, n_bags,
                                          n_fields, bag_len, vocab, d, s);
-  return (int)err;
-}
-
-// The earlier kernel on the same arguments (a yardstick, uncounted).
-int embedding_bag_prev_launch(const void* table, const void* idx,
-                              const void* w, void* out, int dtype,
-                              long long n_bags, int n_fields, int bag_len,
-                              long long vocab, int d, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ix = static_cast<const int*>(idx);
-  const cudaError_t err =
-      dtype == 0 ? launch_prev<float>(table, ix, w, out, n_bags, n_fields,
-                                      bag_len, vocab, d, s)
-                 : launch_prev<__nv_bfloat16>(table, ix, w, out, n_bags,
-                                              n_fields, bag_len, vocab, d, s);
   return (int)err;
 }
 

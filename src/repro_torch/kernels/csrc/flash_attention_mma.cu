@@ -10,10 +10,10 @@
 // bfloat16 for the P V product, accumulated in float32; l summed from the
 // unrounded P; the output acc / max(l, 1e-30) in bfloat16; the causal mask
 // at absolute query position kv_offset + i; GQA through the flattened
-// (g, i) row index over the group's G = H / Hkv query heads, as the simt
-// kernel uses. q, k, v and out are given by batch, head and position
-// strides in elements with d contiguous, so the model's [B, S, H, d]
-// projections and its [B, max_len, Hkv, d] cache are read in place.
+// (g, i) row index over the group's G = H / Hkv query heads. q, k, v and
+// out are given by batch, head and position strides in elements with d
+// contiguous, so the model's [B, S, H, d] projections and its [B, max_len,
+// Hkv, d] cache are read in place.
 // d % 8 == 0, d <= 128, rows on 16-byte boundaries; the head dim is padded
 // to DP in {32, 64, 128} with zero-filled columns, 8 at a time.
 //
@@ -37,7 +37,7 @@
 //     src-size 0).
 //   * S = Q K^T with K as the col operand (ldmatrix); the row max and sum
 //     are reduced over the 4 lanes of a quad; a row with no visible key so
-//     far uses 0 as its max (m_use), as the simt kernel does.
+//     far uses 0 as its max (m_use).
 //   * P stays in registers: the float32 C fragment of S, converted to
 //     bf16 pairs, is the A fragment of the P V product; V comes in through
 //     ldmatrix.trans.

@@ -33,10 +33,6 @@ strides with D contiguous, so a caller may pass transposed views of [B,
 S, H, D] tensors; they need float32 or bfloat16, D <= 128 a multiple of
 16 bytes, rows on a 16-byte boundary. ``tolerance`` gives each route's
 per-element bound against the plain version.
-
-``csrc/flash_attention.cu`` ("simt", the first kernel, float32 on the
-CUDA cores) is reached by no route: it is only a yardstick that
-``chip_smoke.py`` times on the same inputs through ``_launch``.
 """
 from __future__ import annotations
 
@@ -47,13 +43,15 @@ import torch
 
 SOURCES = {"mma": "flash_attention_mma.cu",
            "split": "flash_attention_split.cu",
-           "f32": "flash_attention_f32.cu",
-           "simt": "flash_attention.cu"}          # the yardstick only
-ROUTES = ("mma", "split", "f32")                   # what route() returns
+           "f32": "flash_attention_f32.cu"}
+ROUTES = tuple(SOURCES)                            # what route() returns
+# the bounds ``tolerance`` knows: each route's, and "unrounded", that of a
+# kernel keeping P in float32 (no route does in bfloat16)
+BOUNDS = ROUTES + ("unrounded",)
 MAX_HEAD_DIM = 128
 SPLIT_MAX_ROWS = 16         # query rows per kv head a split block holds
 SPLIT_TILE_KEYS = 64        # keys per tile of the split kernel
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)     # what the kernels take
 launches = 0                # flash_attention calls on the card since reset
 launches_by_route = dict.fromkeys(ROUTES, 0)
 
@@ -129,14 +127,14 @@ def split_plan(batch: int, hkv: int, n_keys: int, n_sm: int) -> tuple:
 
 
 def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
-    """Per-element bound on |kernel - plain| for ``route``'s kernel, where
-    ``ref`` is ``flash_attention_plain(q, k, v, **kw)``.
+    """Per-element bound on |kernel - plain| for ``route``'s kernel (one of
+    ``BOUNDS``), where ``ref`` is ``flash_attention_plain(q, k, v, **kw)``.
 
     - float32 (every route): 2e-4 + 2e-4 |ref|. The kernel sums in
       another order, divides at the end and uses the fast exponential;
       "f32" also forms each product from three TF32 products (hi hi + hi
       lo + lo hi of x = hi + lo), which leaves about 2^-21 of it out.
-    - bfloat16, "simt" (the yardstick kernel, which keeps P in float32):
+    - bfloat16, "unrounded" (a kernel that keeps P in float32):
       1e-2 |ref| + 1e-4 (p @ |v|). Each side rounds a
       float32 value to bfloat16 once, so they are at most 2^-7 |x| apart;
       1e-4 is the float32 error before that rounding, scaled by the row's
@@ -152,7 +150,7 @@ def tolerance(q, k, v, ref, route, **kw) -> torch.Tensor:
       running max and rescales the split's sums by e^(m_s - m) in float32,
       which scales the rounded term and its error alike: the same bound.
     """
-    if route not in SOURCES:
+    if route not in BOUNDS:
         raise ValueError(f"flash_attention: unknown route {route!r}")
     if ref.dtype == torch.float32:
         return 2e-4 + 2e-4 * ref.abs()
@@ -242,12 +240,9 @@ def _launch(way, q, k, v, out, causal, sm_scale, kv_offset) -> None:
                               dtype=torch.float32, device=q.device)
         build.launch(SOURCES[way], "flash_attention_split_launch", q.device,
                      q, k, v, out, scratch, *geometry, n_split, split_keys)
-    elif way in ("mma", "f32"):
+    else:
         build.launch(SOURCES[way], f"flash_attention_{way}_launch", q.device,
                      q, k, v, out, *geometry)
-    else:
-        build.launch(SOURCES[way], "flash_attention_launch", q.device, q, k,
-                     v, out, _DTYPES[q.dtype], *geometry)
 
 
 def reset_launches() -> None:

@@ -57,10 +57,7 @@ dense rows, the run scalars in shared memory. The lane block is
 batch of 16 and S = 2048) and ``chunk_lane_width`` for a chunk (512 at
 a [16, 8] chunk: 512 blocks, about two waves); a skipped tile reads its
 flag, writes its zero rows and nothing else. The design and its reasons
-are in the source's header. The earlier chunk kernels
-(``csrc/guided_score.cu``, ``guided_score_q.cu``: blocks of ``BLOCK_S``
-slots, the terms one after the other with block barriers) are no
-wrapper's any more; ``chip_smoke.py`` times them beside the new ones.
+are in the source's header.
 """
 from __future__ import annotations
 
@@ -71,11 +68,6 @@ import torch
 
 N_ROWS = 5          # Global, Local, Rank, eval mask, rank mask
 N_ROWS_Q = 6        # the same, then postings per slot
-# Doc slots per thread block of the earlier chunk kernels (guided_score.cu,
-# guided_score_q.cu), which only chip_smoke.py still launches: 16 terms x
-# 512 slots x 2 weights x 4 B = 64 KB of shared memory; the launcher halves
-# it when more terms would not fit.
-BLOCK_S = 512
 # Doc slots per thread block (lane width) of the tile kernels: 2048 / 128 =
 # 16 lane blocks per query, 256 blocks at a batch of 16 on the 132 SMs.
 TILE_LANE_WIDTH = 128

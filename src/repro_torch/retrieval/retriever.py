@@ -67,29 +67,39 @@ class Retriever:
     """Facade over a registered engine."""
 
     def __init__(self, engine, params: TwoLevelParams,
-                 k_buckets=K_BUCKETS, generation: int = 0):
+                 k_buckets=K_BUCKETS, generation: int = 0, metrics=None):
         self.engine = engine
         self.params = params
         # sorted: bucket_k picks the first bucket >= k in iteration order
         self.k_buckets = tuple(sorted(k_buckets)) if k_buckets else None
         # index generation tag, stamped on every response
         self.generation = generation
+        # optional obs.MetricsRegistry: each search records its wall
+        # latency into a per-engine histogram (search_ms/<engine>)
+        self.metrics = metrics
+        self._hist_search = (
+            None if metrics is None
+            else metrics.histogram(f"search_ms/{self.engine_name}"))
 
     @classmethod
     def open(cls, index, params: TwoLevelParams | None = None,
              engine: str = "batched", *, device="cuda", k_buckets=K_BUCKETS,
-             generation: int = 0, **engine_opts) -> "Retriever":
+             generation: int = 0, metrics=None,
+             **engine_opts) -> "Retriever":
         """Build a retriever: ``index`` (a ``BlockedImpactIndex`` or a
         ``repro_torch.index.CompressedImpactIndex``) + pruning ``params``
         + an engine name from the registry. The index is served from
         ``device`` (moved there if it lives elsewhere; asking for CUDA
         without a GPU raises). ``engine_opts`` go to the engine constructor
         (``traversal=...``, ``chunk_tiles=...`` for ``"batched"`` /
-        ``"kernel"``, ``warmup=False`` for ``"sequential"``)."""
+        ``"kernel"``, ``warmup=False`` for ``"sequential"``); ``metrics``
+        an optional ``repro_torch.obs.MetricsRegistry`` that collects
+        per-engine search latency histograms."""
         params = params if params is not None else TwoLevelParams()
         eng = get_engine(engine)(index, params, device=device,
                                  **engine_opts)
-        return cls(eng, params, k_buckets=k_buckets, generation=generation)
+        return cls(eng, params, k_buckets=k_buckets, generation=generation,
+                   metrics=metrics)
 
     @property
     def engine_name(self) -> str:
@@ -105,7 +115,7 @@ class Retriever:
                 f"cloning (no .replicate)")
         return Retriever(replicate(self.params), self.params,
                          k_buckets=self.k_buckets,
-                         generation=self.generation)
+                         generation=self.generation, metrics=self.metrics)
 
     def search(self, request: SearchRequest | None = None, *,
                terms=None, weights_b=None, weights_l=None, dense=None,
@@ -148,10 +158,14 @@ class Retriever:
         else:
             q_terms = qw_b = qw_l = None
 
+        # The engines return numpy results, so the window ends with the
+        # ids, scores and stats on the host: what a caller waits for.
         t0 = time.perf_counter()
         res = self.engine.search(q_terms, qw_b, qw_l, request.dense,
                                  k=k_exec, params=params)
         latency_ms = (time.perf_counter() - t0) * 1e3
+        if self._hist_search is not None:
+            self._hist_search.record(latency_ms)
         ids = np.asarray(res.ids)[:, :k_req]
         scores = np.asarray(res.scores)[:, :k_req]
         if ks is None:

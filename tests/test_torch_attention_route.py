@@ -1,6 +1,6 @@
 """K6's three CUDA routes, on the CPU: which route a call takes
-(``flash_attention.route``: "split", "mma" or "f32", never the simt
-yardstick), how the "split" route divides the keys (``split_plan``) and
+(``flash_attention.route``: "split", "mma" or "f32"; no route keeps P
+in float32 in bfloat16), how the "split" route divides the keys (``split_plan``) and
 joins its partials, and the per-element bound each route is held to on
 the card (``flash_attention.tolerance``).
 
@@ -96,8 +96,9 @@ def _bf16_inputs(seed, h, hkv, sq, skv, d):
 def test_mma_bound_holds_for_pallas_bf16(h, hkv, sq, skv, d, causal, off):
     """The Pallas kernel in bfloat16 (P rounded as on the "mma" and
     "split" routes) lies within their bound of the plain version; the
-    "simt" bound, which has no term for that rounding, does not hold for
-    it; a zeroed output fails the bound."""
+    "unrounded" bound (a kernel keeping P in float32), which has no term
+    for that rounding, does not hold for it; a zeroed output fails the
+    bound."""
     (q, k, v), (tq, tk, tv) = _bf16_inputs(h * 1000 + skv, h, hkv, sq, skv, d)
     kw = dict(causal=causal, kv_offset=off)
     pallas = torch.from_numpy(np.asarray(jax_flash(
@@ -108,23 +109,24 @@ def test_mma_bound_holds_for_pallas_bf16(h, hkv, sq, skv, d, causal, off):
     bound = fa.tolerance(tq, tk, tv, ref, "mma", **kw)
     assert torch.equal(bound, fa.tolerance(tq, tk, tv, ref, "split", **kw))
     assert bool((diff <= bound).all()), float((diff - bound).max())
-    assert not bool((diff <= fa.tolerance(tq, tk, tv, ref, "simt",
+    assert not bool((diff <= fa.tolerance(tq, tk, tv, ref, "unrounded",
                                           **kw)).all())
     assert not bool((ref.float().abs() <= bound).all())      # zeros fail
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_tolerance_float32_and_simt_unchanged(dtype):
-    """float32: 2e-4 + 2e-4 |plain| on every route; bfloat16 "simt":
-    1e-2 |plain| + 1e-4 (p @ |v|), the bounds of the single-route kernel;
-    "mma" and "split" add 2^-8 (p @ |v|) in bfloat16."""
+    """float32: 2e-4 + 2e-4 |plain| on every route; bfloat16
+    "unrounded" (a kernel keeping P in float32): 1e-2 |plain| + 1e-4
+    (p @ |v|); "mma" and "split" add 2^-8 (p @ |v|) in bfloat16. A name
+    that is neither a route nor "unrounded" is no bound."""
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(dtype) for s in ((2, 8, 40, 32), (2, 2, 90, 32),
                                     (2, 2, 90, 32)))
     kw = dict(causal=True, kv_offset=50)
     ref = fa.flash_attention_plain(q, k, v, **kw)
-    simt = fa.tolerance(q, k, v, ref, "simt", **kw)
+    simt = fa.tolerance(q, k, v, ref, "unrounded", **kw)
     mma = fa.tolerance(q, k, v, ref, "mma", **kw)
     assert torch.equal(mma, fa.tolerance(q, k, v, ref, "split", **kw))
     if dtype == torch.float32:
@@ -135,8 +137,9 @@ def test_tolerance_float32_and_simt_unchanged(dtype):
     assert torch.equal(simt, 1e-2 * ref.float().abs() + 1e-4 * mag)
     assert torch.equal(mma, 1e-2 * ref.float().abs()
                        + (2.0 ** -8 + 1e-4) * mag)
-    with pytest.raises(ValueError, match="route"):
-        fa.tolerance(q, k, v, ref, "wgmma", **kw)
+    for name in ("wgmma", "simt"):
+        with pytest.raises(ValueError, match="route"):
+            fa.tolerance(q, k, v, ref, name, **kw)
 
 
 def test_cpu_call_moves_no_route_counter():

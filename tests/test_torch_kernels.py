@@ -167,12 +167,16 @@ def test_tile_lane_width_covers_and_fits(nq, tile_size):
 
 
 def test_tile_grid_fills_the_card_on_the_main_path():
-    """At the main path's [B=16, Nq=16] tiles of S = 2048 slots the grid
-    has at least one block per SM of the H100 (132), where the chunk
-    kernels' BLOCK_S would give 64."""
+    """At the main path's [B=16, Nq=16] tiles of S = 2048 slots the tile
+    grid has at least one block per SM of the H100 (132); the chunk grid
+    of a [16, 8] chunk at ``chunk_lane_width`` fills the card (at least
+    ``RESIDENT_BLOCKS``) within two waves, where the tile kernels' lane
+    width would take about eight."""
     width = gs.tile_lane_width(16, 2048)
     assert 16 * -(-2048 // width) >= 132
-    assert 16 * -(-2048 // gs.BLOCK_S) < 132
+    chunk_grid = 16 * 8 * -(-2048 // gs.chunk_lane_width(16, 2048, 128))
+    assert gs.RESIDENT_BLOCKS <= chunk_grid <= 2 * gs.RESIDENT_BLOCKS
+    assert 16 * 8 * -(-2048 // width) > 2 * gs.RESIDENT_BLOCKS
 
 
 @pytest.mark.parametrize("nq,tile_size,n_tiles", [

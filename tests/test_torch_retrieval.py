@@ -153,8 +153,11 @@ def test_open_on_cuda_without_gpu_raises(setup):
 def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     """repro_torch runs with ``jax`` and ``repro`` unimportable: a finder
     that refuses both is installed before anything is imported; it builds
-    and searches the fp32 and the compressed (q8) index, and runs a smoke
-    LM decode step and a smoke DLRM serve step."""
+    and searches the fp32 and the compressed (q8) index, streams a 2-chunk
+    q8 build through ``StreamingIndexBuilder`` and serves it through a
+    ``Retriever`` opened with a metrics registry (``repro_torch.obs``),
+    reads the trace attributes (``obs.trace_exec``), and runs a smoke LM
+    decode step and a smoke DLRM serve step."""
     script = textwrap.dedent("""
         import sys
 
@@ -185,6 +188,32 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
                 assert resp.ids.shape == (4, 10)
                 assert np.isfinite(resp.scores).all()
         assert index.gather_kind == "q8"
+
+        import tempfile
+        import torch
+        from repro_torch.data import StreamingIndexBuilder
+        from repro_torch.obs import MetricsRegistry, prometheus_text
+        from repro_torch.obs import trace_exec
+        with tempfile.TemporaryDirectory() as d:
+            b = StreamingIndexBuilder(d, n_terms=256, tile_size=256,
+                                      chunk_docs=512)
+            for ch in c.iter_chunks(512):
+                assert b.add_chunk(ch)
+            streamed = b.finalize(device="cpu")
+        assert b.completed_chunks == [0, 1]
+        assert all(torch.equal(getattr(streamed, f), getattr(index, f))
+                   for f in ("packed", "qb", "ql", "tile_ptr", "first"))
+        reg = MetricsRegistry()
+        r = Retriever.open(streamed, twolevel.fast(), engine="kernel",
+                           traversal="chunked_fused", device="cpu",
+                           metrics=reg)
+        for k in (10, 100):
+            resp = r.search(terms=c.queries, weights_b=c.q_weights_b,
+                            weights_l=c.q_weights_l, k=k)
+        assert reg.histogram("search_ms/kernel").n == 2
+        assert "repro_search_ms_kernel_count 2" in prometheus_text(reg)
+        attrs = trace_exec.request_attributes(resp.stats)
+        assert attrs["n_chunks"] >= attrs["chunks_dispatched"] >= 1
 
         import repro_torch.models, repro_torch.sparse_ops
         from repro_torch.configs import get_arch
