@@ -43,6 +43,25 @@ Phases, one JSON line each:
   profile   one batch of each path under the profiler (device busy and idle
             share, launches, host syncs, top device ops, the port's own
             kernels); fp32 at k=10 and k=100, q8 at k=10
+  serve_sched  the serving layer (``repro_torch.serve``) on the fp32 index:
+            ``table8_policy(long_engine="kernel",
+            long_traversal="chunked_fused")`` (short route: <= 4 live
+            terms, the plain batched chunked scan at width 4; long route:
+            K1) under ``original(gamma=0.2)``, SchedulerConfig(max_batch=16,
+            pad_terms=16, cache_size=256), k-buckets 10 and 100, a
+            256-request ``mixed_request_stream`` (32 queries, 3 and 16
+            terms, k 10 and 100). Step 1 synchronous (submit all, flush):
+            every response bit-equal to a per-request search on its
+            route, K1 launched by the long route alone, the replay served
+            from the cache; step 2 threaded, 1 and 2 executors (one CUDA
+            stream each) at half step 1's rate (``run_workload``), each
+            response equal to step 1's, then a saturating burst of 64
+            requests with the cache off; step 3 ``swap_index(q8)`` while a
+            2-executor pool serves the stream at step 1's rate:
+            generation-1 responses equal per-request
+            searches on q8 (K3), no cache hit across generations; step 4
+            one injected batch failure retried once, traced (a request
+            span per request, ``chunks_dispatched`` on each execute span)
   rank_safe per index, a rank-safe chunked_fused run against an exhaustive
             top-k computed on the card (q8: over the dequantized postings)
   lm        granite-3-2b at full width (fp32 master, bf16 compute):
@@ -76,7 +95,8 @@ Phases, one JSON line each:
             boundary)
 
 Then the six kernels' summary line (flash_attention once, with its routes
-mma, split and f32), the nvidia-smi line and, last, the one-line verdict.
+mma, split and f32; K1 and K3 also with their serve_sched launches), the
+nvidia-smi line and, last, the one-line verdict.
 Any failed check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
 """
@@ -813,6 +833,295 @@ def phase_rank_safe(label, index, postings, corpus, dev):
          ids_differing_within_tie_tolerance={str(k): v
                                              for k, v in mism.items()},
          tolerance="rtol 2e-5, atol 1e-4")
+
+
+# --------------------------------------------------------------------------
+# serve_sched: the serving layer (scheduler, executor pool, hot swap)
+# --------------------------------------------------------------------------
+
+SCHED_REQUESTS, SCHED_POOL, SCHED_SHORT = 256, 32, 3
+SCHED_KS = (10, 100)
+# the saturating bursts of step 2 and the retried run of step 4 take the
+# stream's first 64 requests: its 32 queries twice, one batch per group
+SCHED_BURST = 64
+
+
+def same_response(got, want) -> bool:
+    """ids, scores and every per-query stat bit-equal."""
+    return (np.array_equal(got.ids, want.ids)
+            and np.array_equal(got.scores, want.scores)
+            and set(got.stats) == set(want.stats)
+            and all(np.array_equal(got.stats[k], want.stats[k])
+                    for k in got.stats))
+
+
+def per_request_refs(scheduler, index, params, stream, dev) -> list:
+    """Each request searched alone on its route's configuration over
+    ``index`` on the card, at the route's padded width (zero-weight
+    terms), as the scheduler executes it; one search per distinct
+    request."""
+    from repro_torch.retrieval import Retriever
+    routing, cfg = scheduler.routing, scheduler.cfg
+    retr = {r.name: Retriever.open(index, params, engine=r.engine,
+                                   device=dev, k_buckets=scheduler.k_buckets,
+                                   **r.opts()) for r in routing.routes}
+    memo, out = {}, []
+    for req in stream:
+        rt = routing.classify(len(req.terms))
+        key = (rt.name, req.terms.tobytes(), req.k)
+        if key not in memo:
+            width = rt.pad_terms or cfg.pad_terms
+            rows = [np.zeros((1, width), dt)
+                    for dt in (np.int32, np.float32, np.float32)]
+            for row, src in zip(rows, (req.terms, req.weights_b,
+                                       req.weights_l)):
+                row[0, :len(src)] = src
+            memo[key] = retr[rt.name].search(
+                terms=rows[0], weights_b=rows[1], weights_l=rows[2],
+                k=req.k)
+        out.append(memo[key])
+    return out
+
+
+def count_route_launches(scheduler, kernel) -> dict:
+    """Wrap each route's master Retriever so that ``kernel``'s launches
+    made inside its searches add up per route (synchronous runs only:
+    the counters are not atomic across threads)."""
+    by_route = {}
+    for r in scheduler.routing.routes:
+        retr = scheduler._retriever(r.name)
+        search = retr.search
+
+        def counted(*a, _search=search, _name=r.name, **kw):
+            before = kernel.launches
+            out = _search(*a, **kw)
+            by_route[_name] = (by_route.get(_name, 0) + kernel.launches
+                               - before)
+            return out
+        retr.search = counted
+    return by_route
+
+
+def capture_handles(scheduler) -> list:
+    """The handles ``run_workload`` submits, in order."""
+    handles, submit = [], scheduler.submit
+
+    def capturing(*a, **kw):
+        handles.append(submit(*a, **kw))
+        return handles[-1]
+    scheduler.submit = capturing
+    return handles
+
+
+def latency_summary(handles, wall_s) -> dict:
+    from repro_torch.serve import aggregate_latencies
+    return aggregate_latencies([h.latency_ms for h in handles], wall_s)
+
+
+def phase_serve_sched(indexes, corpus, smi: str, dev) -> dict:
+    """The serving layer on the card over the fp32 index: the table-8
+    policy (short route: the plain batched chunked scan at width 4; long
+    route: K1, ``chunked_fused``) under ``original(gamma=0.2)``, a
+    256-request mixed stream. Step 1 synchronous, every response
+    bit-equal to a per-request search; step 2 threaded (1 and 2
+    executors, each on its own stream) at half step 1's rate, and a
+    saturating burst of 64 requests with the cache off; step 3 a hot swap
+    to the q8 index while a 2-executor pool serves the stream at step 1's
+    rate (K3); step 4 one injected batch failure, retried, traced.
+    Returns the launch counts of K1 (step 1) and K3 (step 3)."""
+    import threading
+
+    from repro_torch.core import twolevel
+    from repro_torch.kernels import guided_score as gs
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import (AsyncRetrievalScheduler, FaultPlan,
+                                   RetryPolicy, SchedulerConfig, fail_batch,
+                                   mixed_request_stream, run_workload,
+                                   table8_policy)
+
+    index, q8 = indexes["fp32"], indexes["q8"]
+    t_phase = time.perf_counter()
+    params = twolevel.original(gamma=0.2)
+    policy = table8_policy(long_engine="kernel",
+                           long_traversal="chunked_fused")
+    cfg = dict(max_batch=16, pad_terms=16, cache_size=256)
+    stream = mixed_request_stream(corpus, SCHED_REQUESTS,
+                                  short_len=SCHED_SHORT, k_pool=SCHED_KS,
+                                  query_pool=SCHED_POOL)
+
+    def scheduler(index, faults=None, **over):
+        return AsyncRetrievalScheduler(
+            index, params, SchedulerConfig(**{**cfg, **over}),
+            routing=policy, k_buckets=SCHED_KS, faults=faults, device=dev)
+
+    # -- step 1: synchronous ------------------------------------------------
+    s = scheduler(index)
+    require(s.index is index and s.device.type == dev.type,
+            "serve_sched: the scheduler copied the index")
+    warm_s = s.warmup()
+    by_route = count_route_launches(s, gs.guided_score_chunk)
+    gs.reset_launches()
+    t0 = time.perf_counter()
+    handles = [s.submit(r) for r in stream]
+    s.flush()
+    wall1 = time.perf_counter() - t0
+    launches1 = {fn.__name__: fn.launches for fn in gs.KERNELS}
+    k1 = launches1["guided_score_chunk"]
+    require(k1 > 0 and sum(launches1.values()) == k1,
+            f"serve_sched step 1: launches {launches1}")
+    require(by_route == {"short": 0, "long": k1},
+            f"serve_sched step 1: K1 launches by route {by_route}")
+    sync = [h.result() for h in handles]
+    t0 = time.perf_counter()
+    refs = per_request_refs(s, index, params, stream, dev)
+    refs_s = time.perf_counter() - t0
+    bad = [i for i, (a, b) in enumerate(zip(sync, refs))
+           if not same_response(a, b)]
+    require(not bad, f"serve_sched step 1: requests {bad[:8]} differ from "
+                     f"per-request searches")
+    st1 = s.stats()
+    replay = [s.submit(r) for r in stream]
+    require(all(h.cached for h in replay)
+            and all(same_response(h.result(), a)
+                    for h, a in zip(replay, sync)),
+            "serve_sched step 1: the replay is not served from the cache")
+    rps1 = SCHED_REQUESTS / wall1
+    step1 = {"wall_s": wall1, "served_rps": rps1, "warmup_s": warm_s,
+             **latency_summary(handles, wall1),
+             "batches_by_group": st1["batches_by_group"],
+             "requests_by_route": st1["requests_by_route"],
+             "rows_padding": st1["rows_padding"],
+             "replay_cache_hits": s.stats()["cache_hits"],
+             "k1_launches": k1, "k1_launches_by_route": by_route,
+             "per_request_refs_s": refs_s,
+             "check": "every response == a per-request search (ids, "
+                      "scores, stats), bit for bit"}
+    emit("serve_sched", step="sync", **step1)
+
+    # -- step 2: threaded, at half step 1's rate; then a saturating burst ----
+    step2 = {}
+    for n_exec in (1, 2):
+        s = scheduler(index, executors=n_exec)
+        handles = capture_handles(s)
+        with s:
+            res = run_workload(s, stream, qps=0.5 * rps1, seed=0)
+        bad = [i for i, (h, a) in enumerate(zip(handles, sync))
+               if not same_response(h.result(), a)]
+        require(len(handles) == SCHED_REQUESTS and not bad,
+                f"serve_sched step 2 ({n_exec} executors): requests "
+                f"{bad[:8]} differ from step 1")
+        by_exec = res["batches_by_executor"]
+        require(len(by_exec) == n_exec,
+                f"serve_sched step 2: batches by executor {by_exec}")
+        s = scheduler(index, executors=n_exec, cache_size=0)
+        with s:
+            t0 = time.perf_counter()
+            burst = [s.submit(r) for r in stream[:SCHED_BURST]]
+            for h in burst:
+                h.result(timeout=300)
+            wall = time.perf_counter() - t0
+        step2[n_exec] = {
+            "offered_qps": 0.5 * rps1,
+            **{k: res[k] for k in ("n", "mrt_ms", "p50_ms", "p99_ms",
+                                   "qps_achieved", "cache_hits",
+                                   "batches")},
+            "batches_by_executor": by_exec,
+            "burst": {"wall_s": wall, "served_rps": SCHED_BURST / wall,
+                      **latency_summary(burst, wall),
+                      "batches_by_executor":
+                          s.stats()["batches_by_executor"]}}
+        emit("serve_sched", step="threaded", executors=n_exec,
+             **step2[n_exec], check="every response == step 1's")
+
+    # -- step 3: hot swap to the q8 index while a pool serves -----------------
+    s = scheduler(index, executors=2)
+    handles = capture_handles(s)
+    swap = {}
+
+    def swap_to_q8():
+        t0 = time.perf_counter()
+        swap["generation"] = s.swap_index(q8)
+        swap["done"] = time.perf_counter()
+        swap["k3_after"] = gs.guided_score_chunk_q.launches
+        swap["seconds"] = swap["done"] - t0
+
+    gs.reset_launches()
+    timer = threading.Timer(0.35 * SCHED_REQUESTS / rps1, swap_to_q8)
+    with s:
+        timer.start()
+        res = run_workload(s, stream, qps=rps1, seed=0)
+        timer.join()
+    require(swap.get("generation") == 1, f"serve_sched step 3: swap {swap}")
+    k3 = gs.guided_score_chunk_q.launches - swap["k3_after"]
+    q8_refs = per_request_refs(s, q8, params, stream, dev)
+    gens = {0: 0, 1: 0}
+    for i, h in enumerate(handles):
+        resp = h.result()
+        gens[resp.generation] += 1
+        want = q8_refs[i] if resp.generation == 1 else sync[i]
+        require(same_response(resp, want),
+                f"serve_sched step 3: request {i} (generation "
+                f"{resp.generation}, cached {h.cached}) differs from its "
+                f"generation's per-request search")
+        require(not (h.cached and h.t_submit > swap["done"]
+                     and resp.generation != 1),
+                f"serve_sched step 3: request {i} hit a pre-swap entry")
+    st3 = s.stats()
+    require(st3["cache_gen_evictions"] > 0 and gens[1] > 0 and k3 > 0,
+            f"serve_sched step 3: evictions {st3['cache_gen_evictions']}, "
+            f"generations {gens}, K3 launches after the swap {k3}")
+    step3 = {"offered_qps": rps1, "swap_s": swap["seconds"],
+             "generations": gens,
+             "cache_gen_evictions": st3["cache_gen_evictions"],
+             "cache_hits": st3["cache_hits"], "k3_launches": k3,
+             **{k: res[k] for k in ("mrt_ms", "p50_ms", "p99_ms",
+                                    "qps_achieved")},
+             "check": "generation 1 == per-request q8 searches, generation "
+                      "0 == step 1, no cache hit across generations"}
+    emit("serve_sched", step="hot_swap", **step3)
+
+    # -- step 4: one injected batch failure, retried; traced ------------------
+    tracer = Tracer()
+    s = scheduler(index, faults=FaultPlan([fail_batch(0)]),
+                  retry=RetryPolicy(max_attempts=2), tracer=tracer)
+    sub = stream[:SCHED_BURST]
+    handles = [s.submit(r) for r in sub]
+    s.flush()
+    st4 = s.stats()
+    require(st4["retries"] == 1 and st4["failed"] == 0
+            and all(h.done() and h._exception is None for h in handles),
+            f"serve_sched step 4: retries {st4['retries']}, failed "
+            f"{st4['failed']}")
+    require(all(same_response(h.result(), a)
+                for h, a in zip(handles, sync)),
+            "serve_sched step 4: responses differ from step 1")
+    spans = tracer.export()
+    requests = [sp for sp in spans if sp["name"] == "request"]
+    executes = [sp for sp in spans if sp["name"] == "execute"]
+    require(len(requests) == len(handles) == len(executes)
+            and all("chunks_dispatched" in sp["attrs"] for sp in executes),
+            f"serve_sched step 4: {len(requests)} request spans, "
+            f"{len(executes)} execute spans for {len(handles)} requests")
+    emit("serve_sched", step="retry", requests=len(handles),
+         retries=st4["retries"], fired=[list(f) for f in s.faults.fired],
+         request_spans=len(requests),
+         chunks_dispatched_max=max(sp["attrs"]["chunks_dispatched"]
+                                   for sp in executes),
+         check="every handle completes, equal to step 1; one request span "
+               "per request, each execute span with chunks_dispatched")
+    emit("serve_sched", step="summary", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase,
+         preset="original(gamma=0.2)",
+         policy="table8_policy(long_engine='kernel', "
+                "long_traversal='chunked_fused')",
+         config=cfg, k_buckets=list(SCHED_KS),
+         stream=f"mixed_request_stream(corpus, {SCHED_REQUESTS}, "
+                f"short_len={SCHED_SHORT}, k_pool={SCHED_KS}, "
+                f"query_pool={SCHED_POOL})",
+         served_rps={"sync": rps1,
+                     **{f"burst_{n}": step2[n]["burst"]["served_rps"]
+                        for n in step2}})
+    return {"guided_score_chunk": k1, "guided_score_chunk_q": k3}
 
 
 # --------------------------------------------------------------------------
@@ -1923,6 +2232,7 @@ def main() -> int:
          topk_overlap={PATHS["q8"][i][0]: topk_overlap(
              served["q8"][PATHS["q8"][i][0]],
              served["fp32"][PATHS["fp32"][i][0]]) for i in range(2)})
+    sched_launches = phase_serve_sched(indexes, corpus, smi, dev)
     phase_rank_safe("fp32", index, (index.docids, index.w_b, index.w_l),
                     corpus, dev)
     phase_rank_safe("q8", q8, dequantized_postings(q8, index.docids), corpus,
@@ -1966,7 +2276,9 @@ def main() -> int:
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"], "library_ms": None,
-         "floor_ms": kern[name]["floor_ms"]}
+         "floor_ms": kern[name]["floor_ms"],
+         **({"serve_sched_launches": sched_launches[name]}
+            if name in sched_launches else {})}
         for name, (cu, line) in where.items()]}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, cu, line in (("flash_attention", "flash_attention_mma.cu", 29),

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -82,6 +83,9 @@ _RESTYPES = {"error_string": ctypes.c_char_p}
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}     # source -> {"seconds", "path", "ptxas"}
+# held around building and loading: threads that make a first launch at
+# the same time build and load each library once
+_build_lock = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -114,7 +118,7 @@ def _compile(source: str) -> Path:
         build_log[source] = {"seconds": 0.0, "path": str(out), "ptxas": ""}
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *flags(source), "-o", str(tmp), str(CSRC / source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -130,24 +134,30 @@ def _compile(source: str) -> Path:
 def build_all() -> dict:
     """Compile every source (one ``nvcc`` each, all started together) and
     load the libraries. Returns ``build_log``."""
-    todo = [s for s in SOURCES if s not in _libs]
-    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
-        paths = list(pool.map(_compile, todo))
-    for source, path in zip(todo, paths):
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES[source].items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = _RESTYPES.get(name, ctypes.c_int)
-        _libs[source] = lib
+    with _build_lock:
+        todo = [s for s in SOURCES if s not in _libs]
+        with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+            paths = list(pool.map(_compile, todo))
+        for source, path in zip(todo, paths):
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
+            _libs[source] = lib
     return build_log
 
 
 def load(source: str = "guided_score_tile.cu") -> ctypes.CDLL:
-    """The loaded library of ``source``, built on first use."""
-    if source not in _libs:
-        build_all()
-    return _libs[source]
+    """The loaded library of ``source``, built on first use (once, however
+    many threads ask at the same time)."""
+    lib = _libs.get(source)
+    if lib is None:
+        with _build_lock:
+            if source not in _libs:
+                build_all()
+            lib = _libs[source]
+    return lib
 
 
 def error_string(code: int) -> str:

@@ -31,14 +31,24 @@ from .contract import (K_BUCKETS, SearchRequest, SearchResponse, bucket_k,
 from .engines import get_engine
 
 
+def _cast2d(a, np_dtype, torch_dtype):
+    """``a`` unchanged when it already has the dtype (a tensor stays on its
+    device), else a cast copy."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch_dtype)
+    return a if a.dtype == np_dtype else a.astype(np_dtype)
+
+
 def _pad_queries(terms, weights_b, weights_l):
     """Rectangularize a query batch. [B, Nq] arrays or tensors pass through
-    (tensors keep their device); ragged per-query sequences are padded
-    with zero-weight terms (score no-ops)."""
-    batch = (terms, weights_b, weights_l)
-    if all(isinstance(a, torch.Tensor) and a.dim() == 2 for a in batch):
-        return (terms.to(torch.int32), weights_b.to(torch.float32),
-                weights_l.to(torch.float32))
+    (the same objects when their dtype already matches; tensors keep their
+    device); ragged per-query sequences are padded with zero-weight terms
+    (score no-ops)."""
+    if all(isinstance(a, (np.ndarray, torch.Tensor)) and a.ndim == 2
+           for a in (terms, weights_b, weights_l)):
+        return (_cast2d(terms, np.int32, torch.int32),
+                _cast2d(weights_b, np.float32, torch.float32),
+                _cast2d(weights_l, np.float32, torch.float32))
     try:
         arr = np.asarray(terms)
     except ValueError:  # ragged: numpy refuses inhomogeneous shapes

@@ -22,6 +22,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import guided_score as gs
 from repro_torch.launch import steps
 from repro_torch.retrieval import Retriever
+from repro_torch.serve import (AsyncRetrievalScheduler, SchedulerConfig,
+                               mixed_request_stream, table8_policy)
 
 pytestmark = pytest.mark.cuda
 
@@ -329,6 +331,146 @@ def test_chunked_search_runs_the_tile_kernels_on_card(cuda):
         counts = {fn.__name__: fn.launches for fn in gs.KERNELS}
         assert counts[kernel.__name__] > 0
         assert sum(counts.values()) == counts[kernel.__name__], counts
+
+
+def _serving(seed=5):
+    """A corpus, its fp32 index on the card, the table-8 policy with K1 on
+    the long route, and the scheduler config the serving tests use."""
+    corpus = make_corpus("splade_like", n_docs=8192, n_terms=2048,
+                         n_queries=16, n_q_terms=8, avg_doc_terms=24,
+                         seed=seed)
+    index = build_index(corpus.merged("scaled"), tile_size=512)
+    policy = table8_policy(long_engine="kernel",
+                           long_traversal="chunked_fused")
+    cfg = dict(max_batch=8, pad_terms=8, cache_size=0)
+    return corpus, index, policy, cfg
+
+
+def _per_request(retrievers, scheduler, handle, request):
+    """``request`` searched alone on its route's Retriever, at the route's
+    padded width (zero-weight terms), as the scheduler executes it."""
+    rt = scheduler.routing.by_name(handle.route)
+    width = rt.pad_terms or scheduler.cfg.pad_terms
+    rows = [np.zeros((1, width), dt) for dt in (np.int32, np.float32,
+                                                  np.float32)]
+    n = len(request.terms)
+    for row, src in zip(rows, (request.terms, request.weights_b,
+                               request.weights_l)):
+        row[0, :n] = src
+    return retrievers[handle.route].search(
+        terms=rows[0], weights_b=rows[1], weights_l=rows[2], k=request.k)
+
+
+def _assert_same(got, want):
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    assert set(got.stats) == set(want.stats)
+    for key in got.stats:
+        np.testing.assert_array_equal(got.stats[key], want.stats[key])
+
+
+def test_scheduler_on_card_matches_per_request_searches(cuda):
+    """The table-8 policy served on the card (short route: the plain
+    batched chunked scan; long route: K1, ``chunked_fused``): every handle
+    equals a per-request search on its route's Retriever on the card, ids,
+    scores and stats; K1 is the only kernel launched, all by the long
+    route's batches."""
+    corpus, index, policy, cfg = _serving()
+    params = twolevel.original(gamma=0.2)
+    s = AsyncRetrievalScheduler(index, params, SchedulerConfig(**cfg),
+                                routing=policy)
+    assert s.device.type == "cuda" and s.index is index
+    stream = mixed_request_stream(corpus, 32, short_len=3, k_pool=(10, 100))
+    by_route = {}
+    for name in ("short", "long"):
+        retr = s._retriever(name)
+        search = retr.search
+
+        def counted(*a, _search=search, _name=name, **kw):
+            before = gs.guided_score_chunk.launches
+            out = _search(*a, **kw)
+            by_route[_name] = (by_route.get(_name, 0)
+                               + gs.guided_score_chunk.launches - before)
+            return out
+        retr.search = counted
+    gs.reset_launches()
+    handles = [s.submit(r) for r in stream]
+    s.flush()
+    counts = {fn.__name__: fn.launches for fn in gs.KERNELS}
+    assert counts["guided_score_chunk"] > 0
+    assert sum(counts.values()) == counts["guided_score_chunk"], counts
+    assert by_route == {"short": 0, "long": counts["guided_score_chunk"]}
+    refs = {r.name: Retriever.open(index, params, engine=r.engine,
+                                   **r.opts()) for r in policy.routes}
+    for h, r in zip(handles, stream):
+        _assert_same(h.result(), _per_request(refs, s, h, r))
+
+
+def test_two_executor_pool_on_card_matches_sync(cuda):
+    """Two executors, each on its own CUDA stream, serve a stream bit-equal
+    to the synchronous run, and both serve batches; a request whose fields
+    are tensors on the card is read to the host at submit and answered as
+    its numpy twin."""
+    corpus, index, policy, cfg = _serving()
+    params = twolevel.original(gamma=0.2)
+    stream = mixed_request_stream(corpus, 48, short_len=3, k_pool=(10, 100),
+                                  query_pool=12)
+    sync = AsyncRetrievalScheduler(index, params, SchedulerConfig(**cfg),
+                                   routing=policy)
+    hs = [sync.submit(r) for r in stream]
+    sync.flush()
+    want = [h.result() for h in hs]
+    pool = AsyncRetrievalScheduler(
+        index, params, SchedulerConfig(**{**cfg, "executors": 2}),
+        routing=policy)
+    with pool:
+        streams = {m.stream for m in pool._pool.replicas.values()}
+        assert len(streams) == 2 and None not in streams
+        hs = [pool.submit(r) for r in stream]
+        got = [h.result(timeout=120) for h in hs]
+        twin = stream[1]                     # a long row, k=10
+        on_card = pool.submit(
+            terms=torch.from_numpy(twin.terms).to(cuda),
+            weights_b=torch.from_numpy(twin.weights_b).to(cuda),
+            weights_l=torch.from_numpy(twin.weights_l).to(cuda), k=twin.k)
+        _assert_same(on_card.result(timeout=120), want[1])
+    st = pool.stats()
+    assert st["completed"] == len(stream) + 1
+    assert len(st["batches_by_executor"]) == 2
+    for a, b in zip(got, want):
+        _assert_same(a, b)
+
+
+def test_swap_index_to_q8_on_card_runs_k3(cuda):
+    """``swap_index`` from the fp32 index to the q8 index of the same
+    corpus, on the card: the long route's batches then launch K3 (and no
+    K1), every generation-1 response equals a per-request search on the
+    q8 index, and no cache entry survives the swap."""
+    corpus, index, policy, cfg = _serving()
+    params = twolevel.original(gamma=0.2)
+    q8 = compress_index(corpus.merged("scaled"), tile_size=512)
+    s = AsyncRetrievalScheduler(index, params,
+                                SchedulerConfig(**{**cfg, "cache_size": 64}),
+                                routing=policy)
+    stream = mixed_request_stream(corpus, 24, short_len=3, k_pool=(10, 100))
+    for r in stream:
+        s.submit(r)
+    s.flush()
+    assert s.stats()["cache_entries"] > 0
+    assert s.swap_index(q8) == 1 and s.index is q8
+    st = s.stats()
+    assert st["cache_entries"] == 0 and st["cache_gen_evictions"] > 0
+    gs.reset_launches()
+    handles = [s.submit(r) for r in stream]
+    s.flush()
+    assert not any(h.cached for h in handles)
+    assert gs.guided_score_chunk_q.launches > 0
+    assert gs.guided_score_chunk.launches == 0
+    refs = {r.name: Retriever.open(q8, params, engine=r.engine, **r.opts())
+            for r in policy.routes}
+    for h, r in zip(handles, stream):
+        assert h.result().generation == 1
+        _assert_same(h.result(), _per_request(refs, s, h, r))
 
 
 # b, h, hkv, sq, skv, d, causal, kv_offset, and the route of a bfloat16

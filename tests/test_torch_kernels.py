@@ -257,3 +257,37 @@ def test_launchers_route_to_the_tile_source(monkeypatch, q8, form, b, c):
                       width)]
     assert width == (512 if (form, b) == ("chunk", 16) else 128)
     assert out.shape == (b,) + ((c,) if c else ()) + (6 if q8 else 5, s)
+
+
+def test_load_builds_once_across_threads(monkeypatch):
+    """Executor threads can make a source's first launch at the same time:
+    ``load`` builds (``build_all``) once and every thread gets the one
+    library. ``build_all`` is a slow stub here (no nvcc on the CPU)."""
+    import threading
+    import time
+
+    from repro_torch.kernels import build
+    builds = []
+
+    def slow_build_all():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        for source in build.SOURCES:
+            build._libs[source] = f"lib:{source}"
+        return build.build_log
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "build_all", slow_build_all)
+    start = threading.Barrier(8)
+    got = []
+
+    def first_launch():
+        start.wait(timeout=10)
+        got.append(build.load("guided_score_tile.cu"))
+    threads = [threading.Thread(target=first_launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    assert len(builds) == 1
+    assert got == ["lib:guided_score_tile.cu"] * 8

@@ -1,19 +1,23 @@
 """The port's observability layer (``repro_torch.obs``), on the CPU: the
-port of the ``tests/test_obs.py`` tests that need no scheduler, plus the
-port's own seams.
+port of the ``tests/test_obs.py`` tests (all but the bench-JSON guard,
+which waits for the port's benchmarks), plus the port's own seams.
 
 Ported (same names, same assertions): exact-rank quantiles and
 ``aggregate_latencies``, mergeable histograms (with the hypothesis
 merge == pooled property), the registry, the span tracer (simulated clock,
 bounded ring, zero-cost disabled path), Prometheus/JSON export and the HTTP
 server, and the cost model (fit, guards, monotone prediction on a port
-index). Added: the export's JSON fallback on torch values, the obs surface
-loading without torch, ``Retriever.open(metrics=)`` recording one
-``search_ms/<engine>`` sample per search as the reference does, and
+index), and the scheduler-bound tests on ``repro_torch.serve``
+(``device="cpu"``): queue-wait and service histograms in ``stats()``, the
+per-request trace, cached and expired request spans, cost-sorted
+dispatch parity, the predictor against realized chunks, the featurizer
+reset on a swap. Added: the export's JSON fallback on torch values, the
+obs surface loading without torch, ``Retriever.open(metrics=)`` recording
+one ``search_ms/<engine>`` sample per search as the reference does, and
 ``trace_exec`` and ``QueryFeaturizer`` on the port's stats and index
-equal to the reference's on its own. The scheduler-bound tests wait for
-the serving port.
+equal to the reference's on its own.
 """
+import functools
 import json
 import math
 import os
@@ -46,10 +50,15 @@ from repro_torch.obs import (FEATURES, NULL_SPAN, NULL_TRACER, CostModel,
                              aggregate_latencies, exact_quantile,
                              json_snapshot, prometheus_text)
 from repro_torch.obs import trace_exec
-from repro_torch.retrieval import Retriever
+from repro_torch.retrieval import Retriever, SearchRequest
+from repro_torch.serve import (AsyncRetrievalScheduler, SchedulerConfig,
+                               single_route)
 
 RANK_SAFE = twolevel.original(gamma=0.2)
 SRC = Path(__file__).resolve().parents[1] / "src"
+
+# the scheduler tests run on the CPU; the entry points default to "cuda"
+Scheduler = functools.partial(AsyncRetrievalScheduler, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -403,6 +412,172 @@ def test_cost_prediction_is_monotone(setup):
         p = model.predict(np.concatenate([f_base, f_more, f_heavy]))
         assert p[1] >= p[0] - 1e-9
         assert p[2] >= p[0] - 1e-9
+
+
+def test_sort_without_model_raises(setup):
+    corpus, index = setup
+    with pytest.raises(ValueError, match="cost_model"):
+        Scheduler(index, RANK_SAFE,
+                  SchedulerConfig(sort_batches_by_cost=True))
+
+
+# -- scheduler integration ----------------------------------------------------
+
+def _req(corpus, i, qlen=None, k=10):
+    q, wb, wl = (corpus.queries[i], corpus.q_weights_b[i],
+                 corpus.q_weights_l[i])
+    if qlen is not None:
+        q, wb, wl = q[:qlen], wb[:qlen], wl[:qlen]
+    return SearchRequest(terms=q, weights_b=wb, weights_l=wl, k=k)
+
+
+def _chunked_route():
+    return single_route("batched", traversal="chunked", chunk_tiles=2)
+
+
+def _serve(scheduler, corpus, n=10, mixed=True):
+    handles = []
+    for i in range(n):
+        qlen = 3 if (mixed and i % 2 == 0) else None
+        handles.append(scheduler.submit(_req(corpus, i % 12, qlen=qlen)))
+    scheduler.flush()
+    return [h.result(timeout=30.0) for h in handles]
+
+def test_stats_carry_queue_wait_and_service_histograms(setup):
+    corpus, index = setup
+    s = Scheduler(
+        index, RANK_SAFE, SchedulerConfig(max_batch=4, cache_size=0))
+    _serve(s, corpus, n=6)
+    st = s.stats()
+    assert st["queue_wait_ms"]["n"] == 6     # one sample per request
+    assert st["service_ms"]["n"] == st["batches"]
+    assert st["queue_wait_ms"]["p99"] >= st["queue_wait_ms"]["p50"] >= 0.0
+    # the snapshot-consistency invariant stays intact with the new keys
+    assert st["submitted"] == (st["completed"] + st["failed"] + st["shed"]
+                               + st["rejected"] + st["expired"]
+                               + st["pending"] + st["in_flight"])
+
+def test_one_trace_explains_a_slow_request(setup):
+    """The acceptance trace: with tracing on, a single exported trace
+    shows the queue wait, the batch token, the executor id, and the
+    traversal's chunks_dispatched."""
+    corpus, index = setup
+    tracer = Tracer()
+    s = Scheduler(
+        index, RANK_SAFE,
+        SchedulerConfig(max_batch=4, cache_size=0, tracer=tracer),
+        routing=_chunked_route())
+    _serve(s, corpus, n=8)
+    trace_id = tracer.slowest("request")
+    assert trace_id is not None
+    spans = {sp["name"]: sp for sp in tracer.trace(trace_id)}
+    assert set(spans) == {"request", "queue", "execute"}
+    assert spans["queue"]["attrs"]["queue_wait_ms"] >= 0.0
+    ex = spans["execute"]["attrs"]
+    assert isinstance(ex["batch"], int)
+    assert ex["executor"] == -1              # sync dispatch: no pool slot
+    assert ex["chunks_dispatched"] >= 1.0
+    assert ex["n_chunks"] >= ex["chunks_dispatched"]
+    assert len(ex["cost_features"]) == len(FEATURES)
+    # children link to the root request span
+    root_id = spans["request"]["span_id"]
+    assert spans["queue"]["parent_id"] == root_id
+    assert spans["execute"]["parent_id"] == root_id
+
+def test_cached_hits_and_expiries_emit_request_spans(setup):
+    corpus, index = setup
+    tracer = Tracer()
+    s = Scheduler(
+        index, RANK_SAFE,
+        SchedulerConfig(max_batch=4, cache_size=16, tracer=tracer))
+    h1 = s.submit(_req(corpus, 0))
+    s.flush()
+    h1.result(timeout=30.0)
+    h2 = s.submit(_req(corpus, 0))
+    assert h2.result(timeout=30.0) is not None and h2.cached
+    outcomes = [sp["attrs"].get("outcome") for sp in tracer.export()
+                if sp["name"] == "request"]
+    assert outcomes.count("completed") == 1
+    assert outcomes.count("cached") == 1
+    # expiry: a dead-on-arrival deadline sheds at pick time with a span
+    h3 = s.submit(SearchRequest(terms=corpus.queries[1],
+                                weights_b=corpus.q_weights_b[1],
+                                weights_l=corpus.q_weights_l[1],
+                                k=10, deadline_ms=1e-6))
+    time.sleep(0.002)
+    s.flush()
+    with pytest.raises(Exception):
+        h3.result(timeout=5.0)
+    expired = [sp for sp in tracer.export()
+               if sp["attrs"].get("outcome") == "expired"]
+    assert len(expired) == 1
+
+def test_cost_sorted_dispatch_is_bit_identical(setup):
+    """The parity acceptance: per-query results are batch-composition
+    independent, so cost-sorted dispatch returns bit-identical
+    ids/scores to unsorted dispatch for every request."""
+    corpus, index = setup
+    # fit a model from a traced run over the same route
+    tracer = Tracer()
+    traced = Scheduler(
+        index, RANK_SAFE,
+        SchedulerConfig(max_batch=4, cache_size=0, tracer=tracer),
+        routing=_chunked_route())
+    _serve(traced, corpus, n=10)
+    model = CostModel.fit_from_traces(tracer.export())
+    assert (model.weights >= 0).all()
+
+    def responses(sort):
+        s = Scheduler(
+            index, RANK_SAFE,
+            SchedulerConfig(max_batch=4, cache_size=0,
+                            cost_model=model if sort else None,
+                            sort_batches_by_cost=sort),
+            routing=_chunked_route())
+        return _serve(s, corpus, n=10)
+
+    plain, sorted_ = responses(False), responses(True)
+    for a, b in zip(plain, sorted_):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.scores, b.scores)
+
+def test_predictor_tracks_realized_chunks(setup):
+    """Fit from one traced run, predict on a second: predicted chunk
+    counts must correlate with realized chunks_dispatched (the mixed
+    short/long stream spans a real cost range)."""
+    corpus, index = setup
+    tracer = Tracer()
+    s = Scheduler(
+        index, RANK_SAFE,
+        SchedulerConfig(max_batch=4, cache_size=0, tracer=tracer),
+        routing=_chunked_route())
+    _serve(s, corpus, n=12)
+    spans = tracer.export()
+    model = CostModel.fit_from_traces(spans)
+    X, y = [], []
+    for sp in spans:
+        attrs = sp["attrs"]
+        if "cost_features" in attrs and "chunks_dispatched" in attrs:
+            X.append(attrs["cost_features"])
+            y.append(attrs["chunks_dispatched"])
+    assert len(y) >= 10
+    pred = model.predict(np.asarray(X))
+    y = np.asarray(y)
+    if y.std() > 0 and pred.std() > 0:
+        assert np.corrcoef(pred, y)[0, 1] > 0.5
+    else:                     # degenerate corpus: constant chunk counts
+        assert np.allclose(pred, pred[0])
+
+def test_featurizer_resets_on_swap(setup):
+    corpus, index = setup
+    tracer = Tracer()
+    s = Scheduler(
+        index, RANK_SAFE,
+        SchedulerConfig(max_batch=4, cache_size=0, tracer=tracer))
+    _serve(s, corpus, n=2)
+    assert s._featurizer is not None
+    s.swap_index(index, warm=False)
+    assert s._featurizer is None
 
 
 # -- the port's seams ---------------------------------------------------------

@@ -156,8 +156,10 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     and searches the fp32 and the compressed (q8) index, streams a 2-chunk
     q8 build through ``StreamingIndexBuilder`` and serves it through a
     ``Retriever`` opened with a metrics registry (``repro_torch.obs``),
-    reads the trace attributes (``obs.trace_exec``), and runs a smoke LM
-    decode step and a smoke DLRM serve step."""
+    reads the trace attributes (``obs.trace_exec``), flushes a 2-route
+    scheduler and serves a stream through a 2-executor pool
+    (``repro_torch.serve``), and runs a smoke LM decode step and a smoke
+    DLRM serve step."""
     script = textwrap.dedent("""
         import sys
 
@@ -214,6 +216,28 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
         assert "repro_search_ms_kernel_count 2" in prometheus_text(reg)
         attrs = trace_exec.request_attributes(resp.stats)
         assert attrs["n_chunks"] >= attrs["chunks_dispatched"] >= 1
+
+        from repro_torch.serve import (AsyncRetrievalScheduler,
+                                       SchedulerConfig, mixed_request_stream,
+                                       run_workload, table8_policy)
+        policy = table8_policy(short_max_len=2, long_engine="kernel",
+                               long_traversal="chunked_fused")
+        stream = mixed_request_stream(c, 16, short_len=2, query_pool=4)
+        s = AsyncRetrievalScheduler(streamed, twolevel.fast(),
+                                    SchedulerConfig(max_batch=4, pad_terms=4),
+                                    routing=policy, device="cpu")
+        hs = [s.submit(r) for r in stream]
+        s.flush()
+        assert all(h.result().ids.shape[0] == 1 for h in hs)
+        assert set(s.stats()["requests_by_route"]) == {"short", "long"}
+        pool = AsyncRetrievalScheduler(
+            streamed, twolevel.fast(),
+            SchedulerConfig(max_batch=4, pad_terms=4, executors=2),
+            routing=policy, device="cpu")
+        with pool:
+            res = run_workload(pool, stream, qps=2000.0)
+        assert res["n"] == 16 and res["completed"] == 16
+        assert sum(res["batches_by_executor"].values()) == res["batches"]
 
         import repro_torch.models, repro_torch.sparse_ops
         from repro_torch.configs import get_arch
