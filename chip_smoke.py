@@ -62,6 +62,19 @@ Phases, one JSON line each:
             searches on q8 (K3), no cache hit across generations; step 4
             one injected batch failure retried once, traced (a request
             span per request, ``chunks_dispatched`` on each execute span)
+  sharded   the fp32 and q8 indexes partitioned into 4 tile-range shards
+            (``shard_index``: host repack seconds, bytes on the card,
+            padding share) and served through ``Retriever.open(...,
+            engine="sharded", use_kernel=True)`` on one batch of 16:
+            rank-safe (``original(gamma=0.2)``, full, docid schedule,
+            exchange every 0 and 64 tiles) ids and scores bit-equal to the
+            single-device tile kernel's search at k=10 and k=100 (q8: k=10);
+            guided (``fast()``) chunked bit-equal to the per-shard
+            impact-ordered full scan, its chunk and tile counters beside
+            the single-device chunked path's; one profiled fp32 chunked
+            batch; the collective path on an NCCL group of one rank equal
+            to the emulation at one shard. Every sharded search launches
+            its index's tile kernel (K2, K4) and no other
   rank_safe per index, a rank-safe chunked_fused run against an exhaustive
             top-k computed on the card (q8: over the dequantized postings)
   lm        granite-3-2b at full width (fp32 master, bf16 compute):
@@ -95,7 +108,8 @@ Phases, one JSON line each:
             boundary)
 
 Then the six kernels' summary line (flash_attention once, with its routes
-mma, split and f32; K1 and K3 also with their serve_sched launches), the
+mma, split and f32; K1 and K3 also with their serve_sched launches, K2
+and K4 with their sharded launches), the
 nvidia-smi line and, last, the one-line verdict.
 Any failed check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
@@ -1122,6 +1136,222 @@ def phase_serve_sched(indexes, corpus, smi: str, dev) -> dict:
                      **{f"burst_{n}": step2[n]["burst"]["served_rps"]
                         for n in step2}})
     return {"guided_score_chunk": k1, "guided_score_chunk_q": k3}
+
+
+# --------------------------------------------------------------------------
+# sharded: tile-range shards on one card (emulation) and an NCCL group
+# --------------------------------------------------------------------------
+
+N_SHARDS = 4
+SHARD_EXCHANGE = (0, 64)        # exchange periods of the rank-safe check
+# the guided chunked path's exchange period: one chunk of 8 tiles (the
+# default chunk_tiles) per round, so each shard's chunk loop stops against
+# the global theta; exchange 0 is also run once, for its counters
+GUIDED_EXCHANGE = 8
+
+
+def shard_summary(sh, seconds: float) -> dict:
+    """Host repack seconds, bytes on the card and the padding share of the
+    stacked flat leaves of one partition."""
+    nnz = sh.nnz_per_shard
+    return {"repack_s": seconds, "device_bytes": sh.nbytes(),
+            "tiles_per_shard": sh.tiles_per_shard,
+            "nnz_per_shard": nnz.tolist(), "max_nnz": sh.max_nnz,
+            "padding_share": 1.0 - float(nnz.sum())
+            / (sh.n_shards * sh.max_nnz)}
+
+
+def counted_search(fn, kernel):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (response, ms on the host clock, counts). Fails unless
+    ``kernel`` launched, and it alone."""
+    from repro_torch.kernels import guided_score as gs
+    gs.reset_launches()
+    t0 = time.perf_counter()
+    resp = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {f.__name__: f.launches for f in gs.KERNELS}
+    require(counts[kernel] > 0 and sum(counts.values()) == counts[kernel],
+            f"sharded: launches {counts}, expected {kernel} alone")
+    return resp, ms, counts
+
+
+def bit_equal(a, b, what: str, stats=()) -> None:
+    require(np.array_equal(a.ids, b.ids)
+            and np.array_equal(a.scores, b.scores)
+            and all(np.array_equal(a.stats[k], b.stats[k]) for k in stats),
+            f"sharded: {what} differ")
+
+
+def split_stats(resp) -> dict:
+    st = resp.stats
+    out = {"tiles_visited": float(st["tiles_visited"].mean())}
+    if "shard_tiles_visited" in st:
+        out["shard_tiles_visited"] = st["shard_tiles_visited"].mean(
+            0).tolist()
+    if "chunks_dispatched" in st:
+        out["chunks_dispatched"] = float(st["chunks_dispatched"].mean())
+        out["n_chunks"] = float(st["n_chunks"][0])
+    if "shard_chunks_dispatched" in st:
+        out["shard_chunks_dispatched"] = st["shard_chunks_dispatched"].mean(
+            0).tolist()
+    return out
+
+
+def phase_sharded(indexes, corpus, smi: str, dev) -> dict:
+    """Sharded retrieval on the card: ``shard_index(index, 4)`` and
+    ``shard_index(q8, 4)``, served through ``Retriever.open(...,
+    engine="sharded", use_kernel=True)`` on one batch of 16 queries.
+    Rank-safe (``original(gamma=0.2)``, full traversal, docid schedule,
+    exchange every 0 and 64 tiles): ids and scores bit-equal to the
+    single-device tile kernel's search at k=10 and k=100 (q8: at k=10).
+    Guided (``fast()``, exchange every chunk): the chunked path bit-equal
+    to the per-shard impact-ordered full scan (ids, scores, every stat),
+    beside the single-device chunked path's counters and the chunked
+    path without exchange; one profiled fp32 chunked batch. The
+    collective path on an NCCL group of one rank equals the emulation on
+    the q8 index at n_shards=1. Every
+    sharded search is counted alone: K2 (K4 on q8) and nothing else.
+    Returns the K2 and K4 launches of the sharded searches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import twolevel
+    from repro_torch.core.shard_plan import shard_index
+    from repro_torch.core.traversal import STAT_KEYS, retrieve_batched
+    from repro_torch.retrieval import Retriever
+    from repro_torch.serve import make_shard_mesh
+
+    index, q8 = indexes["fp32"], indexes["q8"]
+    t_phase = time.perf_counter()
+    q = dict(terms=corpus.queries[:BATCH],
+             weights_b=corpus.q_weights_b[:BATCH],
+             weights_l=corpus.q_weights_l[:BATCH])
+    qa = tuple(q.values())
+    reduced = ["one batch of 16 queries per path and k",
+               "guided and q8 paths at k=10 only (k=100 cut for the "
+               "phase's time)", "the collective path on one rank"]
+    parts, info = {}, {}
+    for label, idx in (("fp32", index), ("q8", q8)):
+        t0 = time.perf_counter()
+        parts[label] = shard_index(idx, N_SHARDS, device=dev)
+        torch.cuda.synchronize()
+        info[label] = shard_summary(parts[label], time.perf_counter() - t0)
+    emit("sharded", step="partition", n_shards=N_SHARDS, **info)
+
+    tile = {"fp32": "guided_score_tile", "q8": "guided_score_tile_q"}
+    launches = {name: 0 for name in tile.values()}
+    ms = {}
+
+    def sharded(label, params, k, what, **opts):
+        r = Retriever.open(parts[label], params, engine="sharded",
+                           use_kernel=True, device=dev, **opts)
+        resp, t, counts = counted_search(lambda: r.search(**q, k=k),
+                                         tile[label])
+        launches[tile[label]] += counts[tile[label]]
+        ms[f"{label} {what} k={k}"] = t
+        return resp
+
+    def single(label, params, k, what, traversal="full"):
+        idx = index if label == "fp32" else q8
+        t0 = time.perf_counter()
+        resp = retrieve_batched(idx, *qa, params, use_kernel=True, k=k,
+                                traversal=traversal)
+        ms[f"{label} single-device {what} k={k}"] = (
+            time.perf_counter() - t0) * 1e3
+        return resp
+
+    # first-call set-up outside the timings: one query through each
+    for label in parts:
+        Retriever.open(parts[label], twolevel.fast(), engine="sharded",
+                       use_kernel=True, traversal="chunked",
+                       device=dev).search(**{f: v[:1] for f, v in q.items()},
+                                          k=KS[0])
+
+    # -- rank-safe: bit-equal to the single-device tile kernel ----------------
+    safe = twolevel.original(gamma=0.2)
+    for label, ks in (("fp32", KS), ("q8", KS[:1])):
+        for k in ks:
+            ref = single(label, safe, k, "full docid")
+            for every in SHARD_EXCHANGE:
+                got = sharded(label, safe, k, f"full docid exchange "
+                              f"{every}", exchange_every=every)
+                bit_equal(got, ref, f"{label} rank-safe k={k} exchange "
+                          f"{every} ids/scores vs single device")
+    emit("sharded", step="rank_safe", preset="original(gamma=0.2)",
+         traversal="full", schedule="docid", exchange_every=SHARD_EXCHANGE,
+         check="ids and scores bit-equal to single-device "
+               "retrieve_batched(use_kernel=True) at each k and exchange "
+               "period (q8 at k=10)")
+
+    # -- guided: chunked == the per-shard impact full scan --------------------
+    fast = twolevel.fast()
+    stat_keys = STAT_KEYS + ("n_tiles", "shard_tiles_visited")
+    k = KS[0]
+    guided = {}
+    for label in parts:
+        ck = sharded(label, fast, k, f"chunked exchange {GUIDED_EXCHANGE}",
+                     traversal="chunked", exchange_every=GUIDED_EXCHANGE)
+        full = sharded(label, fast.replace(schedule="impact"), k,
+                       f"full impact exchange {GUIDED_EXCHANGE}",
+                       exchange_every=GUIDED_EXCHANGE)
+        bit_equal(ck, full, f"{label} guided k={k} chunked vs impact full "
+                  f"scan", stat_keys)
+        one = single(label, fast, k, "chunked", traversal="chunked")
+        guided[label] = {"sharded_chunked": split_stats(ck),
+                         "single_device_chunked": split_stats(one)}
+    guided["fp32"]["sharded_chunked_exchange_0"] = split_stats(sharded(
+        "fp32", fast, k, "chunked exchange 0", traversal="chunked"))
+    emit("sharded", step="guided", preset="fast()", k=k,
+         exchange_every=GUIDED_EXCHANGE, **guided,
+         check="sharded chunked == per-shard impact full scan (ids, "
+               "scores, every stat), bit for bit")
+
+    # one profiled batch of the fp32 chunked path at k=10
+    r = Retriever.open(parts["fp32"], fast, engine="sharded",
+                       use_kernel=True, traversal="chunked",
+                       exchange_every=GUIDED_EXCHANGE, device=dev)
+    prof = profile_call(lambda: r.search(**q, k=k))
+    emit("sharded", step="profile", path="fp32 chunked", k=k,
+         exchange_every=GUIDED_EXCHANGE, **prof)
+
+    # -- the collective path: an NCCL group of one rank -----------------------
+    one = shard_index(q8, 1, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            tmp + "/store", 1), rank=0, world_size=1)
+        try:
+            x = torch.ones(4, device=dev)
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            require(x.tolist() == [1.0] * 4, "sharded: NCCL all-reduce")
+            got = {}
+            for way, mesh in (("emulated", None), ("nccl",
+                                                   make_shard_mesh(1))):
+                r = Retriever.open(one, fast, engine="sharded",
+                                   use_kernel=True, traversal="chunked",
+                                   mesh=mesh, device=dev)
+                got[way], t, counts = counted_search(
+                    lambda: r.search(**q, k=k), tile["q8"])
+                launches[tile["q8"]] += counts[tile["q8"]]
+                ms[f"q8 1 shard chunked {way} k={k}"] = t
+            bit_equal(got["nccl"], got["emulated"],
+                      "the NCCL path and the emulation",
+                      tuple(got["emulated"].stats))
+        finally:
+            dist.destroy_process_group()
+    emit("sharded", step="distributed", backend="nccl", world_size=1,
+         index="q8", check="one batch on make_shard_mesh(1) == the "
+                           "emulation at n_shards=1 (ids, scores, every "
+                           "stat)")
+
+    for name, n in launches.items():
+        require(n > 0, f"sharded: {name} never launched")
+    emit("sharded", step="summary", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase, batch_ms=ms,
+         launches=launches, reduced=reduced)
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2233,6 +2463,7 @@ def main() -> int:
              served["q8"][PATHS["q8"][i][0]],
              served["fp32"][PATHS["fp32"][i][0]]) for i in range(2)})
     sched_launches = phase_serve_sched(indexes, corpus, smi, dev)
+    sharded_launches = phase_sharded(indexes, corpus, smi, dev)
     phase_rank_safe("fp32", index, (index.docids, index.w_b, index.w_l),
                     corpus, dev)
     phase_rank_safe("q8", q8, dequantized_postings(q8, index.docids), corpus,
@@ -2278,7 +2509,9 @@ def main() -> int:
          "bound_by": kern[name]["bound_by"], "library_ms": None,
          "floor_ms": kern[name]["floor_ms"],
          **({"serve_sched_launches": sched_launches[name]}
-            if name in sched_launches else {})}
+            if name in sched_launches else {}),
+         **({"sharded_launches": sharded_launches[name]}
+            if name in sharded_launches else {})}
         for name, (cu, line) in where.items()]}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, cu, line in (("flash_attention", "flash_attention_mma.cu", 29),

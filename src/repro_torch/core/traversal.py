@@ -209,9 +209,23 @@ class Context:
         return self.use_kernel and self.index.gather_kind == "q8"
 
 
-def _thresholds(ctx: Context, carry: Carry):
-    """(theta_Gl, theta_Lo) of each row, threshold_factor applied."""
-    return carry.gv[:, -1] * ctx.factor, carry.lv[:, -1] * ctx.factor
+def _floored(gv, th_floor):
+    """Each row's theta_Gl (the k-th Global value), raised to ``th_floor``
+    ([B]) when one is given."""
+    th_gl = gv[:, -1]
+    return th_gl if th_floor is None else torch.maximum(th_gl, th_floor)
+
+
+def _thresholds(ctx: Context, carry: Carry, th_floor=None):
+    """(theta_Gl, theta_Lo) of each row, threshold_factor applied.
+
+    ``th_floor`` ([B] f32, optional) is an externally supplied lower bound
+    on theta_Gl: the sharded path injects the exchanged global threshold
+    here so a shard prunes against the global queue, not just its local
+    one. Thresholds only tighten, so any floor <= the true global theta is
+    safe. theta_Lo is never floored."""
+    return (_floored(carry.gv, th_floor) * ctx.factor,
+            carry.lv[:, -1] * ctx.factor)
 
 
 def _merge_candidates(ctx: Context, carry: Carry, cands, tiles, skip):
@@ -255,12 +269,13 @@ class StepInputs(NamedTuple):
 
 
 def step_inputs(ctx: Context, carry: Carry, tiles,
-                n_valid: int | None = None) -> StepInputs:
+                n_valid: int | None = None, th_floor=None) -> StepInputs:
     """Plan bounds, skip test and gather for ``tiles`` ([B] or [B, C]) from
-    the carry's current thresholds. Tiles with id >= ``n_valid`` (the
-    chunk sentinel) are force-skipped."""
+    the carry's current thresholds (theta_Gl raised to ``th_floor``, see
+    ``_thresholds``). Tiles with id >= ``n_valid`` (the chunk sentinel, a
+    shard's padding tiles) are force-skipped."""
     index, plan = ctx.index, ctx.plan
-    th_gl, th_lo = _thresholds(ctx, carry)
+    th_gl, th_lo = _thresholds(ctx, carry, th_floor)
     lead = (slice(None),) + (None,) * (tiles.dim() - 1)
     th_gl = th_gl[lead]
     m_alpha, m_beta, ub_gl = term_bounds(plan, index.tile_max_b,
@@ -284,10 +299,10 @@ def step_inputs(ctx: Context, carry: Carry, tiles,
 
 
 def _tile_step(ctx: Context, carry: Carry, tile,
-               n_valid: int | None = None) -> Carry:
+               n_valid: int | None = None, th_floor=None) -> Carry:
     """One tile visit per row (``tile`` [B]): plan bounds -> skip test ->
     score -> queue merge."""
-    x = step_inputs(ctx, carry, tile, n_valid)
+    x = step_inputs(ctx, carry, tile, n_valid, th_floor)
     coef = (ctx.alpha, ctx.beta, ctx.gamma)
     tile_size = ctx.index.tile_size
     if ctx.raw_q8:
@@ -306,19 +321,19 @@ def _tile_step(ctx: Context, carry: Carry, tile,
 
 
 def _chunk_scan(ctx: Context, carry: Carry, tiles_chunk,
-                n_valid: int) -> Carry:
+                n_valid: int, th_floor=None) -> Carry:
     """Advance every row over one chunk of its tile order ([B, C]).
 
     Exact per-tile semantics: every tile re-reads the carry's thresholds,
     so the operation sequence is identical to the full scan's. Sentinel
     tiles (id >= n_valid) are force-skipped."""
     for c in range(tiles_chunk.shape[1]):
-        carry = _tile_step(ctx, carry, tiles_chunk[:, c], n_valid)
+        carry = _tile_step(ctx, carry, tiles_chunk[:, c], n_valid, th_floor)
     return carry
 
 
 def _chunk_step_fused(ctx: Context, carry: Carry, tiles_chunk,
-                      n_valid: int) -> Carry:
+                      n_valid: int, th_floor=None) -> Carry:
     """Advance every row over one chunk ([B, C]) with one
     ``guided_score_chunk`` (q8: ``guided_score_chunk_q``) launch.
 
@@ -328,7 +343,7 @@ def _chunk_step_fused(ctx: Context, carry: Carry, tiles_chunk,
     so rank-safe configs stay bound-exact; guided configs follow a slightly
     different, still bound-safe, threshold trajectory."""
     tile_size = ctx.index.tile_size
-    x = step_inputs(ctx, carry, tiles_chunk, n_valid)
+    x = step_inputs(ctx, carry, tiles_chunk, n_valid, th_floor)
     args = (x.essential.float(), x.prefix_beta, x.skip.to(torch.int32),
             x.th_lo, ctx.alpha, ctx.beta, ctx.gamma)
     if ctx.raw_q8:
@@ -344,22 +359,24 @@ def _chunk_step_fused(ctx: Context, carry: Carry, tiles_chunk,
     return carry
 
 
-def _chunk_while(advance, chunk_ub, carry: Carry, factor):
+def _chunk_while(advance, chunk_ub, carry: Carry, factor, th_floor=None):
     """Early-exit loop over a chunk sequence: the Block-Max-Pruning
-    termination rule.
+    termination rule, shared by the batched executor and the sharded
+    per-shard rounds (``serve.sharded``).
 
     Dispatches chunk ``i`` (``advance(i, carry)``) while any row's chunk
-    bound ``chunk_ub[:, i]`` beats its theta_Gl * factor; per-chunk bounds
-    descend and thresholds only tighten, so the first failing chunk proves
-    every later tile fails its per-tile skip test too. Returns the carry
-    and the per-row count of chunks that were live when dispatched.
+    bound ``chunk_ub[:, i]`` beats its (floored, see ``_thresholds``)
+    theta_Gl * factor; per-chunk bounds descend and thresholds only
+    tighten, so the first failing chunk proves every later tile fails its
+    per-tile skip test too. Returns the carry and the per-row count of
+    chunks that were live when dispatched.
 
     The test reads one bool back to the host per chunk: a device sync per
     chunk."""
     disp = torch.zeros(chunk_ub.shape[0], dtype=torch.float32,
                        device=chunk_ub.device)
     for i in range(chunk_ub.shape[1]):
-        active = chunk_ub[:, i] > carry.gv[:, -1] * factor
+        active = chunk_ub[:, i] > _floored(carry.gv, th_floor) * factor
         if not bool(active.any()):
             break
         carry = advance(i, carry)

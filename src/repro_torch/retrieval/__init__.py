@@ -3,7 +3,7 @@
   - :mod:`contract`: ``SearchRequest`` / ``SearchResponse`` with per-call
     ``k`` and ``threshold_factor``; ``K_BUCKETS`` depth buckets;
   - :mod:`engines`: the ``Engine`` protocol and string-keyed registry
-    (``batched`` / ``kernel`` / ``sequential``);
+    (``batched`` / ``kernel`` / ``sequential`` / ``sharded``);
   - :mod:`retriever`: the ``Retriever`` facade
     (``Retriever.open(index, params, engine=..., device=...)`` →
     ``.search(...)``) handling padding, k-bucketing and engine dispatch.

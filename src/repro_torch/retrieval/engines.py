@@ -10,6 +10,9 @@ never a different pruning algorithm:
     "kernel"      same scan, guided_score CUDA kernels on a GPU index
                   (their decode-in-kernel ``_q`` twins on a compressed one)
     "sequential"  host tile loop, physical skips + timings
+    "sharded"     tile ranges scanned per shard + stable top-k merge:
+                  emulated on one device, or one rank per shard in a
+                  torch.distributed group (``serve.sharded``)
 
 Third-party backends register with ``@register_engine("name")``; the class
 must accept ``(index, params, device=..., **opts)`` and implement
@@ -147,3 +150,76 @@ class SequentialEngine:
     def replicate(self, params):
         return type(self)(self.index, params, warmup=self.warmup,
                           device=self.index.device)
+
+
+@register_engine("sharded")
+class ShardedEngine:
+    """Tile ranges scanned per shard with a stable top-k merge
+    (``serve.sharded.shard_retrieve_batched``).
+
+    Accepts a ``BlockedImpactIndex`` or ``CompressedImpactIndex``
+    (partitioned here into ``n_shards`` shards on ``device``) or a prebuilt
+    ``core.shard_plan.ShardedImpactIndex`` (moved to ``device`` if it lives
+    elsewhere). ``mesh=None`` serves through the single-device emulation
+    path; a ``serve.sharded.make_shard_mesh`` mesh runs shard ``rank`` on
+    each rank of its group. ``use_kernel=True`` scores every shard tile
+    through ``guided_score_tile`` (``guided_score_tile_q`` on q8).
+    """
+
+    traversals = ("full", "chunked")
+
+    def __init__(self, index, params: TwoLevelParams, *,
+                 n_shards: int | None = None, mesh=None,
+                 axis_name: str = "shard", use_kernel: bool = False,
+                 exchange_every: int = 0, traversal: str = "full",
+                 chunk_tiles: int | None = None, device="cuda"):
+        # imported here: serve.sharded imports serve.engine, which imports
+        # this package
+        from ..core.shard_plan import ShardedImpactIndex, shard_index
+        if traversal not in self.traversals:
+            raise ValueError(f"engine {self.name!r} supports traversal in "
+                             f"{self.traversals}, got {traversal!r}")
+        if mesh is not None and n_shards is None:
+            n_shards = mesh.shape[axis_name]
+        if isinstance(index, ShardedImpactIndex):
+            self.sharded = index.to(device)
+        else:
+            if not isinstance(index, (BlockedImpactIndex,
+                                      CompressedImpactIndex)):
+                raise TypeError(
+                    f"engine {self.name!r} needs a BlockedImpactIndex, "
+                    f"CompressedImpactIndex or ShardedImpactIndex, got "
+                    f"{type(index).__name__}")
+            # the repack reads the index to the host once, wherever it is
+            self.sharded = shard_index(index, n_shards or 1, device=device)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.use_kernel = use_kernel
+        self.exchange_every = exchange_every
+        self.traversal = traversal
+        self.chunk_tiles = chunk_tiles
+
+    @property
+    def index(self):
+        """The served index: the stacked shards."""
+        return self.sharded
+
+    def search(self, terms, weights_b, weights_l, dense, *, k, params):
+        from ..serve.sharded import shard_retrieve_batched
+        return shard_retrieve_batched(
+            self.sharded, terms, weights_b, weights_l, params,
+            mesh=self.mesh, axis_name=self.axis_name,
+            use_kernel=self.use_kernel,
+            exchange_every=self.exchange_every, k=k,
+            traversal=self.traversal, chunk_tiles=self.chunk_tiles)
+
+    def replicate(self, params):
+        # hand over the prebuilt ShardedImpactIndex: a replica never
+        # re-partitions the tile ranges
+        return type(self)(self.sharded, params, mesh=self.mesh,
+                          axis_name=self.axis_name,
+                          use_kernel=self.use_kernel,
+                          exchange_every=self.exchange_every,
+                          traversal=self.traversal,
+                          chunk_tiles=self.chunk_tiles,
+                          device=self.sharded.device)

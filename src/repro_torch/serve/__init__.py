@@ -4,8 +4,8 @@ a copy of the JAX package's ``repro.serve`` that serves from one device
 k-bucket x length class, the response cache, deadlines, retries, hedging,
 breakers, the index hot swap), the executor pool (one CUDA stream per
 slot), query-length routing, health, fault injection and the deprecated
-``RetrievalServer`` shim. The sharded server waits for the port's sharded
-retrieval."""
+``RetrievalServer`` shim, and sharded retrieval (``make_shard_mesh``,
+``shard_retrieve_batched`` and the deprecated ``ShardedRetrievalServer``)."""
 from .engine import (RetrievalServer, Request,  # noqa: F401
                      ServerConfig)
 from .executor import ExecutorPool, ReplicaMap  # noqa: F401
@@ -24,3 +24,5 @@ from .scheduler import (ADMISSION_POLICIES,  # noqa: F401
                         SchedulerSaturated, SearchHandle, SearchTimeout,
                         aggregate_latencies, mixed_request_stream,
                         run_workload, truncate_terms)
+from .sharded import (ShardedRetrievalServer, make_shard_mesh,  # noqa: F401
+                      shard_retrieve_batched)

@@ -34,7 +34,10 @@ Device: the scheduler serves from one device (``device="cuda"`` by
 default; asking for CUDA without a GPU raises, nothing falls back to the
 CPU). It moves the index there **once** — at construction, and on
 ``swap_index`` for the new index — and opens every route's
-``Retriever`` on that one copy; executor replicas share it. Requests
+``Retriever`` on that one copy; executor replicas share it. A route on
+the ``sharded`` engine opens on a partition of that copy
+(``core.shard_plan.shard_index``), made once per generation and shard
+count and shared by every such route and replica. Requests
 stay on the host: tensor fields (on any device) are read to numpy once
 at submit, and responses come back as numpy.
 
@@ -377,6 +380,9 @@ class AsyncRetrievalScheduler:
         # on; a pool slot's stream waits on it before its first batch of
         # that generation (ExecutorPool)
         self._upload_streams: dict[int, torch.cuda.Stream] = {}
+        # (generation, n_shards) -> the index partitioned for the sharded
+        # routes of that generation
+        self._partitions: dict[tuple, object] = {}
         self.index = self._upload(index, 0)
         self.params = params if params is not None else TwoLevelParams()
         self.cfg = cfg if cfg is not None else SchedulerConfig()
@@ -737,11 +743,33 @@ class AsyncRetrievalScheduler:
         """One route's Retriever on ``index``, which already lives on the
         scheduler's device (so the engine shares it, copying nothing).
         Its searches record into the scheduler's registry
-        (``search_ms/<engine>``)."""
+        (``search_ms/<engine>``). A sharded route opens on the
+        generation's partition (``_partition``)."""
+        if route.engine == "sharded":
+            index = self._partition(route, index, generation)
         return Retriever.open(index, params, engine=route.engine,
                               device=self.device, k_buckets=self.k_buckets,
                               generation=generation, metrics=self.metrics,
                               **route.opts())
+
+    def _partition(self, route, index, generation: int):
+        """``index`` partitioned into the route's shard count on the
+        scheduler's device: made once per (generation, shard count) and
+        shared by every sharded route and replica of that generation. A
+        prebuilt ``ShardedImpactIndex`` is served as it is. Called under
+        ``_open_lock``."""
+        from ..core.shard_plan import ShardedImpactIndex, shard_index
+        if isinstance(index, ShardedImpactIndex):
+            return index
+        opts = route.opts()
+        mesh = opts.get("mesh")
+        n = opts.get("n_shards") or (
+            mesh.shape[opts.get("axis_name", "shard")] if mesh else 1)
+        part = self._partitions.get((generation, n))
+        if part is None:
+            part = shard_index(index, n, device=self.device)
+            self._partitions[(generation, n)] = part
+        return part
 
     def _upload(self, index, generation: int):
         """``index`` on the scheduler's device (the same object when it is
@@ -1244,6 +1272,9 @@ class AsyncRetrievalScheduler:
                 self.params = params
                 self._policy_fp = self.routing.fingerprint(params)
                 self._retrievers = fresh
+                self._partitions = {key: p for key, p in
+                                    self._partitions.items()
+                                    if key[0] == next_gen}
                 self._generation = next_gen
                 # cost features are index-derived; refit lazily on the
                 # new generation's stats arrays

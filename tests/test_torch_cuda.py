@@ -22,8 +22,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import guided_score as gs
 from repro_torch.launch import steps
 from repro_torch.retrieval import Retriever
-from repro_torch.serve import (AsyncRetrievalScheduler, SchedulerConfig,
-                               mixed_request_stream, table8_policy)
+from repro_torch.serve import (AsyncRetrievalScheduler, RoutingPolicy,
+                               SchedulerConfig, mixed_request_stream, route,
+                               table8_policy)
 
 pytestmark = pytest.mark.cuda
 
@@ -471,6 +472,114 @@ def test_swap_index_to_q8_on_card_runs_k3(cuda):
     for h, r in zip(handles, stream):
         assert h.result().generation == 1
         _assert_same(h.result(), _per_request(refs, s, h, r))
+
+
+def _sharded_setup(seed=6):
+    corpus = make_corpus("splade_like", n_docs=8192, n_terms=2048,
+                         n_queries=16, n_q_terms=8, avg_doc_terms=24,
+                         seed=seed)
+    q = dict(terms=corpus.queries, weights_b=corpus.q_weights_b,
+             weights_l=corpus.q_weights_l)
+    return corpus, corpus.merged("scaled"), q
+
+
+@pytest.mark.parametrize("kind", ["fp32", "q8"])
+def test_sharded_engine_on_card_matches_cpu(cuda, kind):
+    """The sharded engine (3 shards, exchange every 2 tiles) on the card
+    against the same search on the CPU, full and chunked: ids, stats and
+    the per-shard splits equal, scores within 1e-6; only the index's tile
+    kernel launched (K2 on fp32, K4 on q8); rank-safe results equal the
+    single-device tile kernel's on the card bit for bit."""
+    from repro_torch.core.traversal import retrieve_batched
+    _, merged, q = _sharded_setup()
+    build = build_index if kind == "fp32" else compress_index
+    kernel = gs.guided_score_tile if kind == "fp32" else gs.guided_score_tile_q
+    gpu = build(merged, tile_size=512)                  # device="cuda"
+    cpu = build(merged, tile_size=512, device="cpu")
+    opts = dict(engine="sharded", n_shards=3, use_kernel=True,
+                exchange_every=2)
+    for traversal in ("full", "chunked"):
+        gs.reset_launches()
+        r = Retriever.open(gpu, twolevel.fast(), traversal=traversal, **opts)
+        assert r.engine.sharded.device.type == "cuda"
+        on_card = r.search(**q, k=10)
+        counts = {fn.__name__: fn.launches for fn in gs.KERNELS}
+        assert counts[kernel.__name__] > 0
+        assert sum(counts.values()) == counts[kernel.__name__], counts
+        on_cpu = Retriever.open(cpu, twolevel.fast(), traversal=traversal,
+                                device="cpu", **opts).search(**q, k=10)
+        np.testing.assert_array_equal(on_card.ids, on_cpu.ids)
+        np.testing.assert_allclose(on_card.scores, on_cpu.scores, rtol=1e-6)
+        assert set(on_card.stats) == set(on_cpu.stats)
+        for key in on_card.stats:
+            np.testing.assert_array_equal(on_card.stats[key],
+                                          on_cpu.stats[key])
+    safe = twolevel.original(gamma=0.2)
+    for k in (10, 100):
+        got = Retriever.open(gpu, safe, **opts).search(**q, k=k)
+        want = retrieve_batched(gpu, q["terms"], q["weights_b"],
+                                q["weights_l"], safe, use_kernel=True, k=k)
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.scores, want.scores)
+
+
+def test_sharded_nccl_world_one_equals_emulation(cuda, tmp_path):
+    """The collective path on an NCCL group of one rank (a FileStore in a
+    temporary directory) equals the emulation path, full and chunked."""
+    import torch.distributed as dist
+    from repro_torch.core.shard_plan import shard_index
+    from repro_torch.serve import make_shard_mesh, shard_retrieve_batched
+    _, merged, q = _sharded_setup()
+    sh = shard_index(build_index(merged, tile_size=512), 1)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_shard_mesh(1)
+        p = twolevel.fast().replace(chunk_tiles=4)
+        for traversal in ("full", "chunked"):
+            kw = dict(use_kernel=True, traversal=traversal,
+                      exchange_every=4)
+            emu = shard_retrieve_batched(sh, *q.values(), p, **kw)
+            msh = shard_retrieve_batched(sh, *q.values(), p, mesh=mesh, **kw)
+            _assert_same(msh, emu)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_two_executor_pool_serves_a_sharded_route_on_card(cuda):
+    """A 2-executor pool serves a sharded route (K2, 4 shards) on the
+    card: every replica shares one partition of the index, and the
+    responses equal the synchronous scheduler's."""
+    corpus, merged, _ = _sharded_setup()
+    index = build_index(merged, tile_size=512)
+    policy = RoutingPolicy((
+        route("short", 4, "batched", pad_terms=4, traversal="chunked",
+              chunk_tiles=2),
+        route("long", None, "sharded", n_shards=4, use_kernel=True,
+              traversal="chunked")))
+    params = twolevel.original(gamma=0.2)
+    cfg = dict(max_batch=8, pad_terms=8, cache_size=0)
+    stream = mixed_request_stream(corpus, 32, short_len=3, k_pool=(10, 100),
+                                  query_pool=8)
+    sync = AsyncRetrievalScheduler(index, params, SchedulerConfig(**cfg),
+                                   routing=policy)
+    hs = [sync.submit(r) for r in stream]
+    sync.flush()
+    want = [h.result() for h in hs]
+    pool = AsyncRetrievalScheduler(
+        index, params, SchedulerConfig(**{**cfg, "executors": 2}),
+        routing=policy)
+    gs.reset_launches()
+    with pool:
+        got = [pool.submit(r).result(timeout=300) for r in stream]
+        part = pool._retriever("long").engine.sharded
+        reps = [m["long"] for m in pool._pool.replicas.values()]
+        assert len(reps) == 2
+        assert all(r.engine.sharded is part for r in reps)
+        assert part.device.type == "cuda" and part.n_shards == 4
+    assert gs.guided_score_tile.launches > 0
+    for a, b in zip(got, want):
+        _assert_same(a, b)
 
 
 # b, h, hkv, sq, skv, d, causal, kv_offset, and the route of a bfloat16

@@ -7,8 +7,8 @@ bit-identical to single-executor, cache hits included), the warmup grid,
 drain-on-close, snapshot-consistent stats under concurrent workers,
 bounded admission (block/reject/shed), and the priority-aging starvation
 bound. Added: the scheduler, its routes and every pool replica share one
-copy of the index, before and after a hot swap. The ``sharded`` replica
-cases wait for the port's sharded engine. The port compiles nothing, so
+copy of the index, before and after a hot swap, and the sharded routes
+one partition of it per generation. The port compiles nothing, so
 the warmup-grid test counts searches instead of jit cache entries (its
 docstring says how).
 
@@ -90,7 +90,8 @@ def _invariant(st):
 # -- replica cloning ----------------------------------------------------------
 
 @pytest.mark.parametrize("engine,opts", [
-    ("batched", {}), ("kernel", {}), ("sequential", {"warmup": False})])
+    ("batched", {}), ("kernel", {}), ("sequential", {"warmup": False}),
+    ("sharded", {"n_shards": 2})])
 def test_replicate_shares_index_and_matches(setup, engine, opts):
     corpus, index = setup
     base = open_retriever(index, RANK_SAFE, engine=engine, **opts)
@@ -106,6 +107,67 @@ def test_replicate_shares_index_and_matches(setup, engine, opts):
                    weights_l=corpus.q_weights_l[:2], k=10)
     np.testing.assert_array_equal(a.ids, b.ids)
     np.testing.assert_array_equal(a.scores, b.scores)
+
+
+def test_replicate_shares_sharded_partition(setup):
+    """A sharded replica must reuse the already-partitioned tile ranges
+    (no re-partition at clone time)."""
+    _, index = setup
+    base = open_retriever(index, RANK_SAFE, engine="sharded", n_shards=2)
+    rep = base.replicate()
+    assert rep.engine.sharded is base.engine.sharded
+
+
+def test_sharded_routes_share_one_partition_per_generation(setup):
+    """Sharded routes open on one partition of the scheduler's index per
+    (generation, shard count): both routes and every pool replica share
+    it, the pool serves the stream as the synchronous scheduler does, and
+    ``swap_index`` partitions the new index once."""
+    from repro_torch.core import shard_plan
+    corpus, index = setup
+    calls = []
+    real = shard_plan.shard_index
+
+    def counting(*a, **kw):
+        calls.append(a[1])
+        return real(*a, **kw)
+    shard_plan.shard_index = counting
+    try:
+        policy = RoutingPolicy((
+            route("short", SHORT, "sharded", pad_terms=SHORT, n_shards=2),
+            route("long", None, "sharded", n_shards=2,
+                  traversal="chunked")))
+        cfg = dict(max_batch=4, pad_terms=LONG, cache_size=0)
+        sync = Scheduler(index, RANK_SAFE, SchedulerConfig(**cfg),
+                         routing=policy)
+        stream = _stream(corpus, 16)
+        want = [sync.submit(r) for r in stream]
+        sync.flush()
+        s = Scheduler(index, RANK_SAFE,
+                      SchedulerConfig(**cfg, executors=2), routing=policy)
+        n_sync = len(calls)
+        with s:
+            got = [s.submit(r).result(timeout=60) for r in stream]
+            masters = [s._retriever(r.name) for r in policy.all_routes]
+            replicas = [rep for m in s._pool.replicas.values()
+                        for rep in m.values()]
+            part = masters[0].engine.sharded
+            assert all(r.engine.sharded is part
+                       for r in masters + replicas)
+            assert len(calls) == n_sync + 1
+            s.swap_index(build_index(corpus.merged("scaled"),
+                                     tile_size=256, device="cpu"),
+                         warm=False)
+            assert len(calls) == n_sync + 2
+            fresh = s._retriever("long").engine.sharded
+            assert fresh is not part
+            assert s._retriever("short").engine.sharded is fresh
+        assert calls == [2] * len(calls) and n_sync == 1
+        for h, a in zip(want, got):
+            np.testing.assert_array_equal(h.result().ids, a.ids)
+            np.testing.assert_array_equal(h.result().scores, a.scores)
+    finally:
+        shard_plan.shard_index = real
 
 
 def test_scheduler_and_pool_share_one_index(setup):

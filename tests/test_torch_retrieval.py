@@ -4,7 +4,11 @@ independence from JAX.
 ``Retriever.search`` is a facade over the engines: for the same request
 (mixed per-row k, ragged queries, threshold override) it must return what
 the reference's ``Retriever`` returns: ids equal, scores within
-``topk_scores_match``, per-row depths and stat counters equal.
+``topk_scores_match``, per-row depths and stat counters equal. The
+``sharded`` engine's cases of ``tests/test_retrieval_api.py`` hold it
+against the reference's ``sharded`` engine and, inside the port, against
+the legacy entry point (``serve.sharded.shard_retrieve_batched``) bit for
+bit.
 
 The port compiles nothing at run time (no ``torch.compile``, no CUDA
 graphs), so the reference's compile-once-per-bucket tests have no
@@ -24,11 +28,14 @@ from conftest import topk_scores_match
 from repro.core import build_index as jax_build_index
 from repro.core import twolevel as jax_twolevel
 from repro.retrieval import Retriever as JaxRetriever
+from repro.core.shard_plan import shard_index as jax_shard_index
 from repro_torch import bridge
 from repro_torch.core import twolevel
+from repro_torch.core.shard_plan import shard_index
 from repro_torch.core.traversal import STAT_KEYS
 from repro_torch.retrieval import (K_BUCKETS, Retriever, SearchRequest,
                                    bucket_k, engine_names, get_engine)
+from repro_torch.serve.sharded import shard_retrieve_batched
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -61,7 +68,10 @@ def _assert_responses_match(ref, port):
 
 @pytest.mark.parametrize("engine,opts", [
     ("batched", {}), ("batched", {"traversal": "chunked"}),
-    ("kernel", {"traversal": "chunked_fused", "chunk_tiles": 2})])
+    ("kernel", {"traversal": "chunked_fused", "chunk_tiles": 2}),
+    ("sharded", {"n_shards": 2}),
+    ("sharded", {"n_shards": 3, "traversal": "chunked", "chunk_tiles": 2,
+                 "use_kernel": True, "exchange_every": 2})])
 def test_mixed_k_search_matches_reference(setup, engine, opts):
     """One batch, per-row depths across two buckets: the engine runs once
     at the largest row's bucket and masks each row past its own k."""
@@ -104,9 +114,9 @@ def test_sequential_engine_matches_batched(setup):
 
 def test_registry_and_engine_options(setup):
     _, _, tidx = setup
-    assert engine_names() == ("batched", "kernel", "sequential")
+    assert engine_names() == ("batched", "kernel", "sequential", "sharded")
     with pytest.raises(KeyError, match="batched"):
-        get_engine("sharded")
+        get_engine("bm25")
     with pytest.raises(ValueError, match="traversal"):
         Retriever.open(tidx, engine="batched", traversal="chunked_fused",
                        device="cpu")
@@ -148,12 +158,131 @@ def test_open_on_cuda_without_gpu_raises(setup):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Retriever.open(tidx, twolevel.fast())          # device="cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Retriever.open(tidx, twolevel.fast(), engine="sharded", n_shards=2)
+
+
+# -- the sharded engine (tests/test_retrieval_api.py's sharded cases) ---------
+
+def test_every_engine_serves_a_request_sharded(setup):
+    """Registry smoke on the sharded engine: the uniform response shape."""
+    corpus, _, tidx = setup
+    r = Retriever.open(tidx, twolevel.fast(), engine="sharded",
+                       device="cpu")
+    resp = r.search(**_q(corpus), k=5)
+    assert resp.engine == "sharded"
+    assert resp.k == 5 and resp.k_exec == 10
+    assert resp.ids.shape == resp.scores.shape == (resp.ids.shape[0], 5)
+    assert resp.latency_ms > 0
+    assert resp.stats
+
+
+def test_traversal_knob_serves_and_reports_chunks_sharded(setup):
+    """The chunked knob opens through the facade on the sharded engine and
+    surfaces chunks_dispatched, equal to the reference's."""
+    corpus, jidx, tidx = setup
+    opts = dict(traversal="chunked", n_shards=2)
+    ref = JaxRetriever.open(jidx, jax_twolevel.fast().replace(chunk_tiles=2),
+                            engine="sharded", **opts).search(**_q(corpus),
+                                                             k=5)
+    resp = Retriever.open(tidx, twolevel.fast().replace(chunk_tiles=2),
+                          engine="sharded", device="cpu", **opts).search(
+        **_q(corpus), k=5)
+    assert resp.ids.shape == (len(corpus.queries), 5)
+    assert (resp.stats["chunks_dispatched"]
+            <= resp.stats["n_chunks"]).all()
+    _assert_responses_match(ref, resp)
+    for key in ("chunks_dispatched", "n_chunks", "shard_chunks_dispatched",
+                "shard_tiles_visited"):
+        np.testing.assert_array_equal(resp.stats[key],
+                                      np.asarray(ref.stats[key]))
+
+
+def test_unsupported_traversal_raises_at_open_sharded(setup):
+    _, _, tidx = setup
+    with pytest.raises(ValueError, match="traversal"):
+        Retriever.open(tidx, twolevel.fast(), engine="sharded",
+                       traversal="chunked_fused", n_shards=2, device="cpu")
+
+
+@pytest.mark.parametrize("params,jparams", [
+    (twolevel.original(gamma=0.2), jax_twolevel.original(gamma=0.2)),
+    (twolevel.fast(), jax_twolevel.fast())], ids=["rank_safe", "guided"])
+def test_sharded_matches_legacy(setup, params, jparams):
+    """The sharded engine == the legacy entry point bit for bit, and ==
+    the reference's sharded engine (ids, stats; scores within
+    ``topk_scores_match``)."""
+    corpus, jidx, tidx = setup
+    sh = shard_index(tidx, 3, device="cpu")
+    ref = shard_retrieve_batched(sh, corpus.queries, corpus.q_weights_b,
+                                 corpus.q_weights_l, params, k=10)
+    resp = Retriever.open(tidx, params, engine="sharded", n_shards=3,
+                          device="cpu").search(**_q(corpus), k=10)
+    np.testing.assert_array_equal(resp.ids, ref.ids)
+    np.testing.assert_array_equal(resp.scores, ref.scores)
+    _assert_responses_match(
+        JaxRetriever.open(jidx, jparams, engine="sharded",
+                          n_shards=3).search(**_q(corpus), k=10), resp)
+
+
+def test_sharded_accepts_prebuilt_shard_plan(setup):
+    corpus, jidx, tidx = setup
+    p = twolevel.fast()
+    sh = shard_index(tidx, 4, device="cpu")
+    a = Retriever.open(tidx, p, engine="sharded", n_shards=4,
+                       device="cpu").search(**_q(corpus), k=10)
+    r = Retriever.open(sh, p, engine="sharded", device="cpu")
+    assert r.engine.sharded is sh                     # no re-partition
+    b = r.search(**_q(corpus), k=10)
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)
+    _assert_responses_match(
+        JaxRetriever.open(jax_shard_index(jidx, 4), jax_twolevel.fast(),
+                          engine="sharded").search(**_q(corpus), k=10), b)
+
+
+@pytest.mark.parametrize("k", [5, 10, 100])
+def test_bucketed_k_rank_safe_parity_sharded(setup, k):
+    """k in {5, 10, 100} through the bucketing path == the legacy entry
+    point at exactly k (rank-safe: exact top-k is prefix-closed)."""
+    corpus, _, tidx = setup
+    params = twolevel.original(gamma=0.2)
+    ref = shard_retrieve_batched(
+        shard_index(tidx, 2, device="cpu"), corpus.queries,
+        corpus.q_weights_b, corpus.q_weights_l, params, k=k)
+    resp = Retriever.open(tidx, params, engine="sharded", n_shards=2,
+                          device="cpu").search(**_q(corpus), k=k)
+    assert resp.k_exec == bucket_k(k)
+    np.testing.assert_array_equal(resp.ids, ref.ids[:, :k])
+    np.testing.assert_array_equal(resp.scores, ref.scores[:, :k])
+
+
+def test_mixed_k_batch_matches_per_k_calls_sharded(setup):
+    """One batch with k in {5, 10, 100} on the sharded engine: each row's
+    prefix is bit-identical to a separate call at that row's own k;
+    slots beyond a row's depth hold the empty sentinels."""
+    corpus, _, tidx = setup
+    mixed = [5, 10, 100]
+    r = Retriever.open(tidx, twolevel.original(gamma=0.2), engine="sharded",
+                       n_shards=2, device="cpu")
+    n = len(mixed)
+    resp = r.search(**_q(corpus, slice(0, n)), k=mixed)
+    assert resp.k == 100 and resp.k_exec == 100
+    np.testing.assert_array_equal(resp.ks, mixed)
+    for i, ki in enumerate(mixed):
+        single = r.search(**_q(corpus, slice(i, i + 1)), k=ki)
+        np.testing.assert_array_equal(resp.ids[i, :ki], single.ids[0])
+        np.testing.assert_array_equal(resp.scores[i, :ki], single.scores[0])
+        assert (resp.ids[i, ki:] == -1).all()
+        assert np.isneginf(resp.scores[i, ki:]).all()
 
 
 def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     """repro_torch runs with ``jax`` and ``repro`` unimportable: a finder
     that refuses both is installed before anything is imported; it builds
-    and searches the fp32 and the compressed (q8) index, streams a 2-chunk
+    and searches the fp32 and the compressed (q8) index (also through the
+    ``sharded`` engine and a 2-shard ``ShardedRetrievalServer``, with the
+    collectives on a gloo group of one rank), streams a 2-chunk
     q8 build through ``StreamingIndexBuilder`` and serves it through a
     ``Retriever`` opened with a metrics registry (``repro_torch.obs``),
     reads the trace attributes (``obs.trace_exec``), flushes a 2-route
@@ -190,6 +319,43 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
                 assert resp.ids.shape == (4, 10)
                 assert np.isfinite(resp.scores).all()
         assert index.gather_kind == "q8"
+
+        import tempfile
+        import torch
+        import torch.distributed as dist
+        from repro_torch.core.shard_plan import shard_index
+        from repro_torch.dist import ring_all_reduce
+        from repro_torch.serve import (Request, ShardedRetrievalServer,
+                                       make_shard_mesh)
+        for traversal in ("full", "chunked"):
+            r = Retriever.open(index, twolevel.fast(), engine="sharded",
+                               n_shards=3, use_kernel=True,
+                               traversal=traversal, exchange_every=2,
+                               device="cpu")
+            resp = r.search(terms=c.queries, weights_b=c.q_weights_b,
+                            weights_l=c.q_weights_l, k=10)
+            assert resp.stats["shard_tiles_visited"].shape == (4, 3)
+        srv = ShardedRetrievalServer(index, twolevel.fast(), n_shards=2,
+                                     device="cpu")
+        srv.submit(Request(c.queries[0], c.q_weights_b[0],
+                           c.q_weights_l[0]), 0.0)
+        while srv.pending:
+            srv._flush()
+        assert srv.completed[0].ids.shape == (10,)
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group(
+                "gloo", store=dist.FileStore(d + "/store", 1), rank=0,
+                world_size=1)
+            one = shard_index(index, 1, device="cpu")
+            a = Retriever.open(one, twolevel.fast(), engine="sharded",
+                               mesh=make_shard_mesh(1), device="cpu")
+            b = Retriever.open(one, twolevel.fast(), engine="sharded",
+                               device="cpu")
+            q = dict(terms=c.queries, weights_b=c.q_weights_b,
+                     weights_l=c.q_weights_l, k=10)
+            assert np.array_equal(a.search(**q).ids, b.search(**q).ids)
+            assert ring_all_reduce(torch.ones(2)).tolist() == [1.0, 1.0]
+            dist.destroy_process_group()
 
         import tempfile
         import torch

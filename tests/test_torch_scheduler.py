@@ -8,8 +8,8 @@ micro-batching with per-request k, the one-shape-per-group guarantee,
 query-length routing, the LRU response cache (zero-service-time
 completions), priorities, the threaded mode, run_workload accounting,
 and the deprecated RetrievalServer shim. The mixed-stream parity runs on
-the ``batched`` and ``kernel`` engines; its ``sharded`` case waits for
-the port's sharded engine. The port compiles nothing, so the
+the ``batched``, ``kernel`` and ``sharded`` engines. The port compiles
+nothing, so the
 compile-once test counts searches and opened retrievers instead of jit
 cache entries (its docstring says how). Added: the default ``"cuda"``
 raises without a GPU, and tensor request fields serve as their numpy
@@ -183,7 +183,8 @@ def test_batch_failure_fails_handles_instead_of_hanging(setup):
 
 # -- the acceptance parity: mixed-k, mixed-length stream ----------------------
 
-@pytest.mark.parametrize("engine,opts", [("batched", {}), ("kernel", {})])
+@pytest.mark.parametrize("engine,opts", [
+    ("batched", {}), ("kernel", {}), ("sharded", {"n_shards": 2})])
 def test_mixed_stream_matches_per_request_calls(setup, engine, opts):
     """Every handle of a mixed-k (5/10/100), mixed-length (3/5-term)
     stream resolves to exactly what a per-request Retriever.search on
