@@ -10,7 +10,10 @@ Phases, one JSON line each:
             library must hold TF32 mma instructions (``cuobjdump -sass``:
             HMMA.1688.F32.TF32)
   index     a seeded splade_like corpus of 2^20 docs over the 30522-term
-            BERT WordPiece vocabulary, indexed onto the card (fp32 BII)
+            BERT WordPiece vocabulary, indexed onto the card (fp32 BII);
+            made by ``eval.make_graded_corpus`` (its postings and queries
+            are ``make_corpus``'s), which adds 256-dim document
+            embeddings and a query-term projection for the hybrid phase
   index_q8  the compressed (q8) index of the same postings, on the card
             beside the fp32 one: host build time, bytes per component and
             per doc, ratio to the fp32 bytes; tile pointers and exact
@@ -77,6 +80,19 @@ Phases, one JSON line each:
             its index's tile kernel (K2, K4) and no other
   rank_safe per index, a rank-safe chunked_fused run against an exhaustive
             top-k computed on the card (q8: over the dequantized postings)
+  hybrid    dense guided retrieval and the hybrid engines at 2^20 docs x
+            256 dims: ``build_hybrid`` over the fp32 index (and the same
+            dense side over q8), ``build_dense_index`` at its defaults;
+            build seconds and bytes; 4 batches of 16 at k=10 and k=100
+            under original(gamma=0.2) and fast(): ``cascade`` (k'=100,
+            K1) and ``rrf`` (k'=100, K3) equal to their first stage
+            composed by hand (rerank scores within 1e-5 of float64,
+            ``dense_topk`` equal to a float64 host top-k off ties), only
+            K1 / K3 launched; ``dense`` rank-safe equal to
+            ``exhaustive_dense`` off ties, guided within the score
+            tolerance of the CPU; quality (MRR@10, nDCG@10, R@10, R@100)
+            next to MRT and p99 per lane (``evaluate_retriever``, 64
+            judged queries); one profiled cascade and dense batch
   lm        granite-3-2b at full width (fp32 master, bf16 compute):
             prefill of 4 x 4096 prompts into a 4128-position cache and 32
             greedy decode steps through flash_attention (prefill on its
@@ -108,8 +124,8 @@ Phases, one JSON line each:
             boundary)
 
 Then the six kernels' summary line (flash_attention once, with its routes
-mma, split and f32; K1 and K3 also with their serve_sched launches, K2
-and K4 with their sharded launches), the
+mma, split and f32; K1 and K3 also with their serve_sched and hybrid
+launches, K2 and K4 with their sharded launches), the
 nvidia-smi line and, last, the one-line verdict.
 Any failed check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
@@ -1172,7 +1188,7 @@ def counted_search(fn, kernel):
     ms = (time.perf_counter() - t0) * 1e3
     counts = {f.__name__: f.launches for f in gs.KERNELS}
     require(counts[kernel] > 0 and sum(counts.values()) == counts[kernel],
-            f"sharded: launches {counts}, expected {kernel} alone")
+            f"launches {counts}, expected {kernel} alone")
     return resp, ms, counts
 
 
@@ -1350,6 +1366,335 @@ def phase_sharded(indexes, corpus, smi: str, dev) -> dict:
         require(n > 0, f"sharded: {name} never launched")
     emit("sharded", step="summary", nvidia_smi=smi,
          seconds=time.perf_counter() - t_phase, batch_ms=ms,
+         launches=launches, reduced=reduced)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# hybrid: dense guided retrieval, the cascade / rrf engines and eval/
+# --------------------------------------------------------------------------
+
+HYBRID_BUDGET_S = 90.0
+HYBRID_DEPTH = 100           # the hybrid engines' first-stage depth k'
+# topk_scores_match's tolerance (tests/conftest.py)
+SCORE_RTOL, SCORE_ATOL = 2e-5, 1e-4
+
+
+def batches(n_queries: int):
+    return [slice(i, i + BATCH) for i in range(0, n_queries, BATCH)]
+
+
+def tied(scores) -> np.ndarray:
+    """[k] positions of a descending score row (given k + 1 scores) whose
+    gap to a neighbour lies within the score tolerance."""
+    s = np.asarray(scores, np.float64)
+    close = np.abs(np.diff(s)) <= SCORE_ATOL + SCORE_RTOL * np.abs(s[1:])
+    out = np.zeros(len(s), bool)
+    out[1:] |= close
+    out[:-1] |= close
+    return out[:-1]
+
+
+def ids_off_ties(got_ids, want_ids, want_scores, what: str) -> int:
+    """Require ``got_ids`` [B, k] == ``want_ids`` [B, k + 1] (cut to k)
+    wherever the reference's scores [B, k + 1] are apart by more than the
+    score tolerance; returns the positions compared."""
+    checked = 0
+    for g, w, s in zip(got_ids, want_ids, want_scores):
+        free = ~tied(s)
+        require(np.array_equal(g[free], w[:len(g)][free]),
+                f"hybrid: {what}: ids differ off ties")
+        checked += int(free.sum())
+    return checked
+
+
+def dense_build_ms(doc_emb, dev) -> dict:
+    """The three steps of ``build_dense_index`` timed alone on the card
+    (CUDA events, on the same embeddings): the covariance product, the
+    eigendecomposition, the rotation with the block maxima and minima."""
+    emb = torch.from_numpy(doc_emb).to(dev)
+    n = emb.shape[0]
+    cov = (emb.T @ emb) / n
+    rot = torch.linalg.eigh(cov)[1].flip(1).contiguous()
+
+    def rotate_and_blocks():
+        blocks = (emb @ rot).view(-1, 4096, emb.shape[1])
+        return blocks.amax(1), blocks.amin(1)
+    out = {"covariance_ms": event_ms(lambda: (emb.T @ emb) / n, runs=5,
+                                     warmup=1),
+           "eigh_ms": event_ms(lambda: torch.linalg.eigh(cov), runs=5,
+                               warmup=1),
+           "rotate_and_blocks_ms": event_ms(rotate_and_blocks, runs=5,
+                                            warmup=1)}
+    del emb, cov, rot
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hybrid(graded, indexes, smi: str, dev) -> dict:
+    """Dense guided retrieval and the hybrid engines on the card, at 2^20
+    docs x 256-dim embeddings (the two-tower config's width).
+
+    Indexes: ``build_hybrid(graded, sparse_index=index)`` (the fp32 BII
+    already on the card, a dense side of 512-doc blocks), the same dense
+    side over q8 (no second PCA), and ``build_dense_index`` at its
+    defaults (4096-doc blocks, ``d_cheap`` 32) for the ``dense`` engine.
+    Searches, 4 batches of 16 at k=10 and k=100 under ``original(gamma=
+    0.2)`` and ``fast()``: ``cascade`` (k'=100, K1 ``chunked_fused``) on
+    the fp32 hybrid, ``rrf`` (k'=100, K3) on the q8 one, and ``dense``
+    rank-safe and guided on the raw query embeddings. Checks: cascade and
+    rrf equal the first stage alone at k'=100 composed with
+    ``rerank_candidates`` / ``dense_topk`` + ``rrf_fuse``; rerank scores
+    within 1e-5 of float64 on the host; ``dense_topk`` and rank-safe
+    ``dense`` ids equal a float64 host top-k / ``exhaustive_dense`` off
+    ties; guided ``dense`` within the score tolerance of the same search
+    on the index moved to the CPU (one batch at k=10); K1 / K3 alone
+    launched. Then one ``evaluate_retriever`` row per lane (quality next
+    to MRT), one profiled cascade batch and one profiled guided dense
+    batch. Returns the K1 and K3 launches of the counted searches."""
+    import dataclasses as dc
+
+    from repro_torch.core import twolevel
+    from repro_torch.core.dense_guided import (build_dense_index,
+                                               exhaustive_dense)
+    from repro_torch.eval import build_hybrid, evaluate_retriever
+    from repro_torch.eval.synthetic import _embed_queries_np
+    from repro_torch.kernels import guided_score as gs
+    from repro_torch.retrieval import Retriever
+    from repro_torch.retrieval.hybrid import (dense_topk, embed_queries,
+                                              rerank_candidates, rrf_fuse)
+
+    t_phase = time.perf_counter()
+    index, q8 = indexes["fp32"], indexes["q8"]
+    corpus = graded.corpus
+    reduced = ["compositions and host float64 checks on the first batch "
+               "of each (preset, k); one profiled batch per path",
+               "guided dense against the CPU on one batch of 16 at k=10 "
+               "(the CPU scan streams about 16 GB)"]
+    # -- indexes ------------------------------------------------------------
+    t0 = time.perf_counter()
+    hybrid = build_hybrid(graded, tile_size=index.tile_size,
+                          sparse_index=index, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hybrid_q8 = dc.replace(hybrid, sparse=q8)
+    dense = build_dense_index(graded.doc_emb, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    require(hybrid.to(dev) is hybrid and hybrid_q8.dense is hybrid.dense,
+            "hybrid: the q8 hybrid does not share the dense side")
+    emit("hybrid", step="build", n_docs=hybrid.n_docs, dim=hybrid.dim,
+         build_s={"hybrid_dense_side": t1 - t0, "dense_index": t2 - t1},
+         dense_index_steps=dense_build_ms(graded.doc_emb, dev),
+         nbytes={"hybrid": hybrid.nbytes(), "hybrid_q8": hybrid_q8.nbytes(),
+                 "dense_index": dense.nbytes()},
+         blocks={"hybrid": [hybrid.dense.block_size, hybrid.dense.n_blocks,
+                            hybrid.dense.d_cheap],
+                 "dense_index": [dense.block_size, dense.n_blocks,
+                                 dense.d_cheap]})
+
+    presets = {"original(gamma=0.2)": twolevel.original(gamma=0.2),
+               "fast()": twolevel.fast()}
+    rows_all = batches(len(corpus.queries))
+
+    def sparse_q(rows):
+        return dict(terms=corpus.queries[rows],
+                    weights_b=corpus.q_weights_b[rows],
+                    weights_l=corpus.q_weights_l[rows])
+    first_opts = dict(first_stage="kernel", traversal="chunked_fused",
+                      depth=HYBRID_DEPTH)
+    lanes = {"cascade": (hybrid, "guided_score_chunk"),
+             "rrf": (hybrid_q8, "guided_score_chunk_q")}
+    launches = {kern: 0 for _, kern in lanes.values()}
+    batch_ms, checks = {}, {}
+    retr = {}
+    for lane, (hyb, kern) in lanes.items():
+        emb = hyb.dense.emb
+        for pname, params in presets.items():
+            r = Retriever.open(hyb, params, engine=lane, device=dev,
+                               **first_opts)
+            retr[lane, pname] = r
+            first = Retriever.open(hyb.sparse, params, engine="kernel",
+                                   traversal="chunked_fused", device=dev)
+            r.search(**sparse_q(rows_all[0]), k=KS[0])   # first-call set-up
+            for k in KS:
+                resps, times = [], []
+                for rows in rows_all:
+                    resp, ms, n = counted_search(
+                        lambda: r.search(**sparse_q(rows), k=k), kern)
+                    launches[kern] += n[kern]
+                    resps.append(resp)
+                    times.append(ms)
+                    require(resp.ids.shape == (BATCH, k)
+                            and bool(np.isfinite(resp.scores).all())
+                            and bool((np.diff(resp.scores, axis=1)
+                                      <= 0).all()),
+                            f"hybrid {lane} k={k}: malformed response")
+                batch_ms[f"{lane} {pname} k={k}"] = times
+                # the composition by hand, on the first batch
+                q0 = sparse_q(rows_all[0])
+                f = first.search(**q0, k=HYBRID_DEPTH)
+                q_rot = embed_queries(hyb, q0["terms"], q0["weights_l"])
+                got = resps[0]
+                if lane == "cascade":
+                    w_scores, w_ids = rerank_candidates(hyb, q_rot, f.ids, k)
+                    live = got.ids >= 0
+                    cand = torch.from_numpy(np.maximum(got.ids, 0)).long()
+                    rows64 = emb[cand.to(dev)].double().cpu().numpy()
+                    host = np.einsum("bkd,bd->bk", rows64,
+                                     q_rot.double().cpu().numpy())
+                    err = float(np.abs(host - got.scores)[live].max())
+                    require(err <= 1e-5, f"hybrid: rerank scores {err} "
+                                         f"from float64")
+                    checks[f"cascade {pname} k={k}"] = {
+                        "rerank_max_abs_err_vs_float64": err}
+                else:
+                    d_vals, d_ids = dense_topk(hyb, q_rot, HYBRID_DEPTH)
+                    w_ids, w_scores = rrf_fuse(f.ids, d_ids, k)
+                    if k == KS[-1] and pname == "fast()":
+                        # dense_topk against a float64 host top-k
+                        e64 = emb[:hyb.n_docs].double().cpu().numpy()
+                        s64 = q_rot.double().cpu().numpy() @ e64.T
+                        order = np.argsort(-s64, axis=1, kind="stable")
+                        top = order[:, :HYBRID_DEPTH + 1]
+                        want_s = np.take_along_axis(s64, top, 1)
+                        checks["dense_topk vs float64"] = {
+                            "positions_compared": ids_off_ties(
+                                d_ids, top, want_s, "dense_topk"),
+                            "max_abs_err": float(np.abs(
+                                want_s[:, :HYBRID_DEPTH] - d_vals).max())}
+                        require(checks["dense_topk vs float64"][
+                            "max_abs_err"] <= 1e-5, "hybrid: dense_topk "
+                                                    "scores off float64")
+                        del e64, s64, order
+                require(np.array_equal(got.ids, w_ids)
+                        and np.array_equal(got.scores, w_scores),
+                        f"hybrid: {lane} {pname} k={k} differs from the "
+                        f"first stage composed by hand")
+    emit("hybrid", step="cascade_rrf", depth=HYBRID_DEPTH,
+         first_stage="kernel chunked_fused", lanes={
+             "cascade": "fp32 hybrid, K1", "rrf": "q8 hybrid, K3"},
+         batch_ms=batch_ms, launches=launches, checks=checks,
+         check="ids and scores equal the first stage alone at k'=100 "
+               "composed by hand (first batch); only the lane's kernel "
+               "launched")
+
+    # -- dense ---------------------------------------------------------------
+    q_emb = _embed_queries_np(graded.q_proj, corpus.queries,
+                              corpus.q_weights_l)
+    dense_presets = {
+        "rank_safe": twolevel.TwoLevelParams(alpha=0, beta=0, gamma=0),
+        "guided": twolevel.TwoLevelParams(alpha=1, beta=0.3, gamma=0)}
+    dense_ms, dense_stats = {}, {}
+    for pname, params in dense_presets.items():
+        r = Retriever.open(dense, params, engine="dense", device=dev)
+        retr["dense", pname] = r
+        r.search(dense=q_emb[rows_all[0]], k=KS[0])
+        for k in KS:
+            resps, times = [], []
+            for rows in rows_all:
+                gs.reset_launches()
+                t0 = time.perf_counter()
+                resp = r.search(dense=q_emb[rows], k=k)
+                ms = (time.perf_counter() - t0) * 1e3
+                require(all(f.launches == 0 for f in gs.KERNELS),
+                        "hybrid: the dense path launched a guided kernel")
+                resps.append(resp)
+                times.append(ms)
+            dense_ms[f"{pname} k={k}"] = times
+            cfs = np.concatenate([x.stats["candidates_fully_scored"]
+                                  for x in resps])
+            dense_stats[f"{pname} k={k}"] = {
+                "fully_scored_share": float(
+                    cfs.mean() / resps[0].stats["n_candidates"])}
+            if pname == "rank_safe":
+                want = [exhaustive_dense(dense, q_emb[i], k + 1)
+                        for i in range(len(q_emb))]
+                w_s = np.stack([w[0] for w in want])
+                w_i = np.stack([w[1] for w in want])
+                got_s = np.concatenate([x.scores for x in resps])
+                got_i = np.concatenate([x.ids for x in resps])
+                np.testing.assert_allclose(got_s, w_s[:, :k],
+                                           rtol=SCORE_RTOL, atol=SCORE_ATOL)
+                dense_stats[f"{pname} k={k}"]["positions_compared"] = (
+                    ids_off_ties(got_i, w_i, w_s, "rank-safe dense"))
+                dense_stats[f"{pname} k={k}"]["ids_equal_share"] = float(
+                    (got_i == w_i[:, :k]).mean())
+    # guided on the card against the same search on the CPU
+    r_gpu = retr["dense", "guided"]
+    r_cpu = Retriever.open(dense.to("cpu"), dense_presets["guided"],
+                           engine="dense", device="cpu")
+    t0 = time.perf_counter()
+    on_cpu = r_cpu.search(dense=q_emb[rows_all[0]], k=KS[0])
+    cpu_s = time.perf_counter() - t0
+    on_card = r_gpu.search(dense=q_emb[rows_all[0]], k=KS[0])
+    np.testing.assert_allclose(on_card.scores, on_cpu.scores,
+                               rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    del r_cpu
+    emit("hybrid", step="dense", block_size=dense.block_size,
+         d_cheap=dense.d_cheap, n_blocks=dense.n_blocks,
+         presets={p: dc.asdict(v) for p, v in dense_presets.items()},
+         batch_ms=dense_ms, stats=dense_stats,
+         guided_vs_cpu={"k": KS[0], "ids_equal_share": float(
+             (on_card.ids == on_cpu.ids).mean()),
+             "max_abs_err": float(np.abs(on_card.scores
+                                         - on_cpu.scores).max()),
+             "fully_scored_share_card": float(
+                 on_card.stats["candidates_fully_scored"].mean()
+                 / on_card.stats["n_candidates"]),
+             "fully_scored_share_cpu": float(
+                 on_cpu.stats["candidates_fully_scored"].mean()
+                 / on_cpu.stats["n_candidates"]),
+             "cpu_seconds": cpu_s},
+         check="rank-safe ids == exhaustive_dense off ties, scores within "
+               "rtol 2e-5 / atol 1e-4; guided within that of the CPU; no "
+               "guided_score kernel launched")
+
+    # -- quality next to latency, 64 judged queries in one batch ------------
+    fast = twolevel.fast()
+    sparse_r = Retriever.open(index, fast, engine="kernel",
+                              traversal="chunked_fused", device=dev)
+    quality = {}
+    for lane, r, queries in (
+            ("sparse K1", sparse_r, graded.queries()),
+            ("cascade", retr["cascade", "fast()"], graded.queries()),
+            ("rrf", retr["rrf", "fast()"], graded.queries()),
+            ("dense guided", retr["dense", "guided"], {"dense": q_emb}),
+            ("dense rank_safe", retr["dense", "rank_safe"],
+             {"dense": q_emb})):
+        row = evaluate_retriever(r, queries, graded.qrels, k=KS[-1])
+        quality[lane] = {m: row[m] for m in (
+            "mrr@10", "ndcg@10", "recall@10", "recall@100", "mrt_ms",
+            "p99_ms", "n_queries")}
+    emit("hybrid", step="quality", preset="fast() (dense: as named)",
+         k=KS[-1], lanes=quality,
+         note="one batch of all judged queries; mrt_ms = batch ms / "
+              "queries, p99 over one timed call")
+
+    # -- profile: one cascade batch at k=10 -----------------------------------
+    r = retr["cascade", "fast()"]
+    q0 = sparse_q(rows_all[0])
+    prof = profile_call(lambda: r.search(**q0, k=KS[0]))
+    first = Retriever.open(index, fast, engine="kernel",
+                           traversal="chunked_fused", device=dev)
+    first.search(**q0, k=HYBRID_DEPTH)          # first-call set-up
+    t0 = time.perf_counter()
+    first.search(**q0, k=HYBRID_DEPTH)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r.search(**q0, k=KS[0])
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    emit("hybrid", step="profile", path="cascade fast() k=10", **prof,
+         first_stage_ms=first_ms, cascade_ms=whole_ms,
+         first_stage_share=first_ms / whole_ms)
+    r = retr["dense", "guided"]
+    emit("hybrid", step="profile", path="dense guided k=10",
+         **profile_call(lambda: r.search(dense=q_emb[rows_all[0]],
+                                         k=KS[0])))
+
+    seconds = time.perf_counter() - t_phase
+    emit("hybrid", step="summary", nvidia_smi=smi, seconds=seconds,
+         budget_s=HYBRID_BUDGET_S, within_budget=seconds <= HYBRID_BUDGET_S,
          launches=launches, reduced=reduced)
     return launches
 
@@ -2383,6 +2728,10 @@ def main() -> int:
     ap.add_argument("--n-docs", type=int, default=2 ** 20)
     args = ap.parse_args()
 
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {ROOT}; run the "
+              f"script from a checkout of the repository", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
               file=sys.stderr)
@@ -2397,7 +2746,7 @@ def main() -> int:
          capability=list(torch.cuda.get_device_capability(0)))
 
     from repro_torch.core import build_index
-    from repro_torch.data import make_corpus
+    from repro_torch.eval import make_graded_corpus
     from repro_torch.index import compress_index
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -2415,9 +2764,14 @@ def main() -> int:
     if args.n_docs != 2 ** 20:
         reduced.append(f"n_docs {args.n_docs} (of 2^20)")
     t0 = time.perf_counter()
-    corpus = make_corpus("splade_like", n_docs=args.n_docs, n_terms=30522,
-                         n_queries=N_BATCHES * BATCH, n_q_terms=16,
-                         avg_doc_terms=16, seed=args.seed)
+    # make_corpus's corpus (n_rel 4, no partial tier, boost scale 1: its
+    # defaults) plus a dense side at the two-tower config's width, 256
+    graded = make_graded_corpus("splade_like", n_docs=args.n_docs,
+                                n_terms=30522, n_queries=N_BATCHES * BATCH,
+                                n_q_terms=16, n_rel=4, n_rel_partial=0,
+                                avg_doc_terms=16, dim=256, seed=args.seed,
+                                rel_boost_scale=1.0)
+    corpus = graded.corpus
     t1 = time.perf_counter()
     merged = corpus.merged("scaled")
     t2 = time.perf_counter()
@@ -2427,7 +2781,7 @@ def main() -> int:
     emit("index", n_docs=index.n_docs, n_terms=index.n_terms, nnz=index.nnz,
          device_bytes=index.nbytes(), pad_len=index.pad_len,
          n_tiles=index.n_tiles, tile_size=index.tile_size,
-         setup_seconds={"make_corpus": t1 - t0, "merge": t2 - t1,
+         setup_seconds={"make_graded_corpus": t1 - t0, "merge": t2 - t1,
                         "layout_and_upload": t3 - t2}, reduced=reduced)
 
     t0 = time.perf_counter()
@@ -2468,7 +2822,8 @@ def main() -> int:
                     corpus, dev)
     phase_rank_safe("q8", q8, dequantized_postings(q8, index.docids), corpus,
                     dev)
-    del index, q8, indexes, served
+    hybrid_launches = phase_hybrid(graded, indexes, smi, dev)
+    del index, q8, indexes, served, graded
     torch.cuda.empty_cache()
 
     lm = phase_lm(args.seed, dev)
@@ -2511,7 +2866,9 @@ def main() -> int:
          **({"serve_sched_launches": sched_launches[name]}
             if name in sched_launches else {}),
          **({"sharded_launches": sharded_launches[name]}
-            if name in sharded_launches else {})}
+            if name in sharded_launches else {}),
+         **({"hybrid_launches": hybrid_launches[name]}
+            if name in hybrid_launches else {})}
         for name, (cu, line) in where.items()]}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, cu, line in (("flash_attention", "flash_attention_mma.cu", 29),

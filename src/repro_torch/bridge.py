@@ -4,7 +4,11 @@ The retrieval core's state is the index. ``index_from_arrays`` takes the
 fields of the reference's ``BlockedImpactIndex`` as numpy arrays (and ints)
 and returns the port's index on ``device``, so both packages search the
 same arrays; ``compressed_from_arrays`` does the same for the reference's
-``CompressedImpactIndex``. The port never imports the reference; callers
+``CompressedImpactIndex``, ``dense_index_from_arrays`` for its
+``DenseGuidedIndex`` (so parity tests search the reference's PCA basis:
+eigenvector signs, and the order of near-equal eigenvalues, differ between
+``jnp.linalg.eigh`` and ``torch.linalg.eigh``), and
+``hybrid_index_from_arrays`` for its ``HybridIndex``. The port never imports the reference; callers
 convert, e.g. ``{f.name: np.asarray(getattr(idx, f.name)) for f in
 dataclasses.fields(idx)}``.
 
@@ -20,9 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import dense_guided
+from .core.dense_guided import DenseGuidedIndex
 from .core.index import (TENSOR_FIELDS, BlockedImpactIndex, index_from_layout,
                          resolve_device)
 from .index.compressed import index_from_fields
+from .retrieval.hybrid import HybridIndex
 from .models import transformer as T
 
 SCALAR_FIELDS = ("n_docs", "n_terms", "tile_size", "n_tiles", "pad_len")
@@ -48,6 +55,38 @@ def index_from_arrays(fields: dict[str, np.ndarray],
 # ``packed`` becomes a bitcast int32, ``first`` int32, the rest keeps its
 # dtype; ``orig_of_new`` (optional) stays a host array.
 compressed_from_arrays = index_from_fields
+
+DENSE_SCALAR_FIELDS = ("block_size", "d_cheap", "n_blocks")
+
+
+def dense_index_from_arrays(fields: dict, device="cuda") -> DenseGuidedIndex:
+    """The port's ``DenseGuidedIndex`` on ``device`` from the reference's
+    built one: ``emb``, ``bmax``, ``bmin``, ``rotation`` as numpy arrays
+    (float32) and the ints ``block_size``, ``d_cheap``, ``n_blocks``."""
+    dev = resolve_device(device)
+    missing = [f for f in DENSE_SCALAR_FIELDS + dense_guided.TENSOR_FIELDS
+               if f not in fields]
+    if missing:
+        raise KeyError(f"dense index fields missing: {missing}")
+    return DenseGuidedIndex(
+        **{f: int(np.asarray(fields[f])) for f in DENSE_SCALAR_FIELDS},
+        **{f: torch.from_numpy(np.array(fields[f], np.float32)).to(dev)
+           for f in dense_guided.TENSOR_FIELDS})
+
+
+def hybrid_index_from_arrays(sparse_fields: dict, dense_fields: dict,
+                             q_proj, device="cuda") -> HybridIndex:
+    """The port's ``HybridIndex`` on ``device`` from the reference's: the
+    sparse side's fields (an fp32 ``BlockedImpactIndex``'s, or a
+    ``CompressedImpactIndex``'s, told apart by ``packed``), the dense
+    side's (``dense_index_from_arrays``) and ``q_proj`` [n_terms, D]."""
+    sparse = (compressed_from_arrays(sparse_fields, device)
+              if "packed" in sparse_fields
+              else index_from_arrays(sparse_fields, device))
+    q_proj = torch.from_numpy(np.array(q_proj, np.float32))
+    return HybridIndex(sparse=sparse,
+                       dense=dense_index_from_arrays(dense_fields, device),
+                       q_proj=q_proj.to(resolve_device(device)))
 
 
 def _tree_to_torch(tree, device):

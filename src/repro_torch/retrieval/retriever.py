@@ -96,15 +96,20 @@ class Retriever:
              engine: str = "batched", *, device="cuda", k_buckets=K_BUCKETS,
              generation: int = 0, metrics=None,
              **engine_opts) -> "Retriever":
-        """Build a retriever: ``index`` (a ``BlockedImpactIndex`` or a
-        ``repro_torch.index.CompressedImpactIndex``) + pruning ``params``
-        + an engine name from the registry. The index is served from
-        ``device`` (moved there if it lives elsewhere; asking for CUDA
+        """Build a retriever: ``index`` (a ``BlockedImpactIndex``, a
+        ``repro_torch.index.CompressedImpactIndex``, a
+        ``core.dense_guided.DenseGuidedIndex`` for ``"dense"``, or a
+        ``retrieval.hybrid.HybridIndex``, which every engine accepts and
+        the hybrid ``"cascade"`` / ``"rrf"`` engines need) + pruning
+        ``params`` + an engine name from the registry. The index is served
+        from ``device`` (moved there if it lives elsewhere; asking for CUDA
         without a GPU raises). ``engine_opts`` go to the engine constructor
         (``traversal=...``, ``chunk_tiles=...`` for ``"batched"`` /
-        ``"kernel"``, ``warmup=False`` for ``"sequential"``); ``metrics``
-        an optional ``repro_torch.obs.MetricsRegistry`` that collects
-        per-engine search latency histograms."""
+        ``"kernel"``, ``warmup=False`` for ``"sequential"``; ``depth=``,
+        ``first_stage=`` and the first stage's options for ``"cascade"`` /
+        ``"rrf"``, also ``rrf_k=`` for ``"rrf"``); ``metrics`` an optional
+        ``repro_torch.obs.MetricsRegistry`` that collects per-engine search
+        latency histograms."""
         params = params if params is not None else TwoLevelParams()
         eng = get_engine(engine)(index, params, device=device,
                                  **engine_opts)

@@ -116,6 +116,7 @@ from ..obs.metrics import MetricsRegistry, aggregate_latencies  # noqa: F401
 from ..obs.spans import NULL_TRACER
 from ..retrieval import (K_BUCKETS, Retriever, SearchRequest,
                          SearchResponse, bucket_k, resolve_ks)
+from ..retrieval.hybrid import HybridIndex
 from .health import HealthConfig, HealthMonitor, RetryPolicy
 from .router import (RoutingPolicy, query_length, single_route,
                      warmup_grid)
@@ -756,11 +757,14 @@ class AsyncRetrievalScheduler:
         """``index`` partitioned into the route's shard count on the
         scheduler's device: made once per (generation, shard count) and
         shared by every sharded route and replica of that generation. A
-        prebuilt ``ShardedImpactIndex`` is served as it is. Called under
+        prebuilt ``ShardedImpactIndex`` is served as it is; a
+        ``HybridIndex`` partitions its sparse side. Called under
         ``_open_lock``."""
         from ..core.shard_plan import ShardedImpactIndex, shard_index
         if isinstance(index, ShardedImpactIndex):
             return index
+        if isinstance(index, HybridIndex):
+            index = index.sparse
         opts = route.opts()
         mesh = opts.get("mesh")
         n = opts.get("n_shards") or (

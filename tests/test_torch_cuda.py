@@ -582,6 +582,122 @@ def test_two_executor_pool_serves_a_sharded_route_on_card(cuda):
         _assert_same(a, b)
 
 
+# dense, cascade and rrf on the card: scores within topk_scores_match's
+# tolerance of the CPU's (the dense products reduce in another order there)
+SCORE_RTOL, SCORE_ATOL = 2e-5, 1e-4
+
+
+def _graded(seed=8):
+    from repro_torch.eval import make_graded_corpus
+    return make_graded_corpus(n_docs=8192, n_terms=2048, n_queries=16,
+                              n_q_terms=8, dim=64, seed=seed)
+
+
+def _launches():
+    return {fn.__name__: fn.launches for fn in gs.KERNELS}
+
+
+def test_dense_engine_on_card_matches_cpu(cuda):
+    """The guided dense scan on the card against the same index moved to
+    the CPU: rank-safe ids equal, guided scores within topk_scores_match's
+    tolerance, ``candidates_fully_scored`` close; no guided_score kernel
+    runs on the dense path."""
+    from repro_torch.core.dense_guided import build_dense_index
+    g = _graded()
+    gpu = build_dense_index(g.doc_emb, block_size=1024, d_cheap=16)
+    cpu = gpu.to("cpu")
+    q = np.random.default_rng(0).standard_normal((16, 64)).astype(
+        np.float32)
+    for params in (twolevel.TwoLevelParams(alpha=0, beta=0, gamma=0),
+                   twolevel.TwoLevelParams(alpha=1, beta=0.3, gamma=0)):
+        gs.reset_launches()
+        on_card = Retriever.open(gpu, params, engine="dense").search(
+            dense=q, k=10)
+        assert sum(_launches().values()) == 0
+        on_cpu = Retriever.open(cpu, params, engine="dense",
+                                device="cpu").search(dense=q, k=10)
+        if params.alpha == 0:
+            np.testing.assert_array_equal(on_card.ids, on_cpu.ids)
+        np.testing.assert_allclose(on_card.scores, on_cpu.scores,
+                                   rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        np.testing.assert_allclose(
+            on_card.stats["candidates_fully_scored"],
+            on_cpu.stats["candidates_fully_scored"], atol=16)
+
+
+@pytest.mark.parametrize("kind,engine", [("fp32", "cascade"),
+                                         ("q8", "rrf")])
+def test_hybrid_engine_on_card_runs_its_chunk_kernel(cuda, kind, engine):
+    """Cascade on the fp32 hybrid index runs K1 (``guided_score_chunk``),
+    rrf on the q8 one K3 (``guided_score_chunk_q``), and no other kernel;
+    ids equal the same search on the index moved to the CPU, scores within
+    topk_scores_match's tolerance."""
+    from repro_torch.eval import build_hybrid
+    g = _graded()
+    sparse = (build_index if kind == "fp32" else compress_index)(
+        g.corpus.merged("scaled"), tile_size=512)
+    hybrid = build_hybrid(g, sparse_index=sparse)
+    kernel = ("guided_score_chunk" if kind == "fp32"
+              else "guided_score_chunk_q")
+    opts = dict(engine=engine, first_stage="kernel",
+                traversal="chunked_fused", depth=100)
+    q = g.queries()
+    for k in (10, 100):
+        gs.reset_launches()
+        on_card = Retriever.open(hybrid, twolevel.fast(), **opts).search(
+            **q, k=k)
+        counts = _launches()
+        assert counts[kernel] > 0
+        assert sum(counts.values()) == counts[kernel], counts
+        on_cpu = Retriever.open(hybrid.to("cpu"), twolevel.fast(),
+                                device="cpu", **opts).search(**q, k=k)
+        np.testing.assert_array_equal(on_card.ids, on_cpu.ids)
+        np.testing.assert_allclose(on_card.scores, on_cpu.scores,
+                                   rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        for key in ("tiles_visited", "chunks_dispatched"):
+            np.testing.assert_array_equal(on_card.stats[key],
+                                          on_cpu.stats[key])
+
+
+def test_scheduler_routes_cascade_on_card(cuda):
+    """A scheduler route to ``cascade`` (K1 first stage) on the card: every
+    handle equals a direct ``Retriever`` search of its request at the
+    route's padded width: ids and stats equal, scores within
+    topk_scores_match's tolerance (the rerank's product on the card reduces
+    in another order for a batch of 8 rows than for one, so scores near 0
+    differ in their last bits); K1 alone launched."""
+    from repro_torch.eval import build_hybrid
+    from repro_torch.serve import single_route
+    g = _graded(seed=9)
+    hybrid = build_hybrid(g, tile_size=512)
+    policy = single_route("cascade", first_stage="kernel",
+                          traversal="chunked_fused", depth=100)
+    params = twolevel.original(gamma=0.2)
+    s = AsyncRetrievalScheduler(hybrid, params,
+                                SchedulerConfig(max_batch=8, pad_terms=8,
+                                                cache_size=0),
+                                routing=policy)
+    assert s.index is hybrid
+    stream = mixed_request_stream(g.corpus, 24, short_len=3,
+                                  k_pool=(10, 100))
+    gs.reset_launches()
+    handles = [s.submit(r) for r in stream]
+    s.flush()
+    counts = _launches()
+    assert counts["guided_score_chunk"] > 0
+    assert sum(counts.values()) == counts["guided_score_chunk"], counts
+    refs = {"all": Retriever.open(hybrid, params, engine="cascade",
+                                  **policy.routes[0].opts())}
+    for h, r in zip(handles, stream):
+        got, want = h.result(), _per_request(refs, s, h, r)
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_allclose(got.scores, want.scores,
+                                   rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        assert set(got.stats) == set(want.stats)
+        for key in got.stats:
+            np.testing.assert_array_equal(got.stats[key], want.stats[key])
+
+
 # b, h, hkv, sq, skv, d, causal, kv_offset, and the route of a bfloat16
 # call (float32 always takes "f32")
 FA_CASES = [

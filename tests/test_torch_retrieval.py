@@ -114,7 +114,8 @@ def test_sequential_engine_matches_batched(setup):
 
 def test_registry_and_engine_options(setup):
     _, _, tidx = setup
-    assert engine_names() == ("batched", "kernel", "sequential", "sharded")
+    assert engine_names() == ("batched", "cascade", "dense", "kernel",
+                              "rrf", "sequential", "sharded")
     with pytest.raises(KeyError, match="batched"):
         get_engine("bm25")
     with pytest.raises(ValueError, match="traversal"):
@@ -287,8 +288,10 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     ``Retriever`` opened with a metrics registry (``repro_torch.obs``),
     reads the trace attributes (``obs.trace_exec``), flushes a 2-route
     scheduler and serves a stream through a 2-executor pool
-    (``repro_torch.serve``), and runs a smoke LM decode step and a smoke
-    DLRM serve step."""
+    (``repro_torch.serve``), builds a hybrid index over a graded corpus
+    and searches it through the ``dense``, ``cascade`` and ``rrf`` engines
+    and scores a ranking through ``repro_torch.eval``, and runs a smoke LM
+    decode step and a smoke DLRM serve step."""
     script = textwrap.dedent("""
         import sys
 
@@ -404,6 +407,27 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
             res = run_workload(pool, stream, qps=2000.0)
         assert res["n"] == 16 and res["completed"] == 16
         assert sum(res["batches_by_executor"].values()) == res["batches"]
+
+        from repro_torch.core import dense_guided
+        from repro_torch.eval import (build_hybrid, evaluate_ranking,
+                                      make_graded_corpus)
+        g = make_graded_corpus(n_docs=512, n_terms=128, n_queries=4,
+                               n_q_terms=4, dim=8, seed=2)
+        hyb = build_hybrid(g, tile_size=128, block_size=128, device="cpu")
+        for engine in ("cascade", "rrf"):
+            resp = Retriever.open(hyb, twolevel.fast(), engine=engine,
+                                  first_stage="kernel",
+                                  traversal="chunked_fused", depth=50,
+                                  device="cpu").search(**g.queries(), k=10)
+            assert resp.ids.shape == (4, 10) and (resp.ids >= 0).all()
+            quality = evaluate_ranking(resp.ids, g.qrels)
+            assert 0.0 <= quality["mrr@10"] <= 1.0
+        dense = dense_guided.build_dense_index(g.doc_emb, block_size=128,
+                                               d_cheap=4, device="cpu")
+        q = np.random.default_rng(0).standard_normal((3, 8))
+        resp = Retriever.open(dense, twolevel.fast(), engine="dense",
+                              device="cpu").search(dense=q, k=5)
+        assert resp.ids.shape == (3, 5) and np.isfinite(resp.scores).all()
 
         import repro_torch.models, repro_torch.sparse_ops
         from repro_torch.configs import get_arch
