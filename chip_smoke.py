@@ -45,7 +45,7 @@ Phases, one JSON line each:
             overlap with the fp32 paths
   profile   one batch of each path under the profiler (device busy and idle
             share, launches, host syncs, top device ops, the port's own
-            kernels); fp32 at k=10 and k=100, q8 at k=10
+            kernels); the fp32 paths at k=10 and k=100, q8 at k=10
   serve_sched  the serving layer (``repro_torch.serve``) on the fp32 index:
             ``table8_policy(long_engine="kernel",
             long_traversal="chunked_fused")`` (short route: <= 4 live
@@ -109,6 +109,27 @@ Phases, one JSON line each:
             inputs of the prefill and of a decode step, also within
             ``fa.three_pass_bound`` (2e-5 + 2e-5 |plain|), where the same
             attention with one TF32 pass per product must fail it
+  lm_moe    granite-moe-1b-a400m (24 layers) and qwen3-moe-30b-a3b (8 of
+            its 48 layers: the float32 master weights of all 48 do not fit
+            one card) at full width, bf16 compute: prefill of 4 x 4096
+            prompts, 32 / 8 greedy decode steps, K6 launches by route
+            (n_layers on "mma" per prefill, on "split" per decode step);
+            layer 0's MoE (prefill and a decode step) against the port's
+            CPU path on the same inputs (dispatch identical off router
+            near-ties, outputs within 2^-6 max|cpu|); at no-drop capacity
+            (n_experts / top_k) 8 decode steps against a cache-free
+            forward where their experts agree; dropped shares, bytes, a
+            profile of each, the MoE layer's time split (routing, expert
+            products, dispatch and combine) and K6 at the MoE shapes
+  launcher  ``repro_torch.launch.serve.main`` in-process at 131,072 docs:
+            the kernel engine under table8 routing with k 10/100, a
+            256-entry cache, retries, tracing and a metrics server whose
+            ``/metrics.json`` is fetched while it serves; 4 shards with
+            exchange every 8 tiles; a hot swap on 2 executors; request
+            counts, cache hits, the swap's generation, K2 launches, and
+            K2 bit-equal to its plain version on arguments captured from
+            the kernel and sharded runs (calls 0, 1, 2, 4, 8, ... and each
+            new shape, at most 12 per run)
   recsys    dlrm-rm2, two-tower-retrieval and bert4rec at full width:
             serve_p99 (batch 512) and retrieval_cand (1,000,448 candidates,
             top-100) through embedding_bag / flash_attention, each against
@@ -124,8 +145,9 @@ Phases, one JSON line each:
             boundary)
 
 Then the six kernels' summary line (flash_attention once, with its routes
-mma, split and f32; K1 and K3 also with their serve_sched and hybrid
-launches, K2 and K4 with their sharded launches), the
+mma, split and f32, the MoE LMs' calls included; K1 and K3 also with
+their serve_sched and hybrid launches, K2 and K4 with their sharded
+launches, K2 with the launcher's), the
 nvidia-smi line and, last, the one-line verdict.
 Any failed check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
@@ -759,10 +781,11 @@ PATHS = {"fp32": (("guided_score_chunk", "chunked_fused"),
                   ("guided_score_tile", "chunked")),
          "q8": (("guided_score_chunk_q", "chunked_fused"),
                 ("guided_score_tile_q", "chunked"))}
-# Depths profiled per index. A profiled k=100 batch of a tile path traces
-# about 100k device ops and costs some 100 s of host time, so the q8
-# paths are profiled at k=10 only (listed in the index phase's `reduced`).
-PROFILE_KS = {"fp32": KS, "q8": KS[:1]}
+# Depths profiled per path: both fp32 paths at every k, q8 at k=10 only
+# (the index phase's `reduced`). A profiled k=100 batch of a tile path
+# traces about 100k device ops and costs some 100 s of host time.
+PROFILE_KS = {"guided_score_chunk": KS, "guided_score_tile": KS,
+              "guided_score_chunk_q": KS[:1], "guided_score_tile_q": KS[:1]}
 
 
 def phase_serve(label, index, corpus, dev):
@@ -821,7 +844,7 @@ def phase_serve(label, index, corpus, dev):
          check=f"{tile_name} chunked == batched chunked (plain)",
          ids="identical", stats="identical", scores="rtol 1e-6")
     emit("profile", index=label,
-         **{name: [profile_search(r, corpus, k) for k in PROFILE_KS[label]]
+         **{name: [profile_search(r, corpus, k) for k in PROFILE_KS[name]]
             for name, r in paths})
 
     return launches, served
@@ -2450,6 +2473,548 @@ def phase_lm_f32(arch, cfg, master, seed: int) -> dict:
     return {"launches": launches, "main": main}
 
 
+# --------------------------------------------------------------------------
+# lm_moe: the MoE LMs (granite-moe-1b-a400m, qwen3-moe-30b-a3b), K6
+# --------------------------------------------------------------------------
+
+# (arch, layers run (None: all), decode steps): qwen3-moe's 48 layers with
+# float32 master weights (119 GB) do not fit one card; 8 of them do
+MOE_CELLS = (("granite-moe-1b-a400m", None, 32),
+             ("qwen3-moe-30b-a3b", 8, 8))
+MOE_BATCH, MOE_PROMPT, MOE_CHECK_STEPS = 4, 4096, 8
+# Layer 0's MoE on the card against the port's CPU path on the same
+# inputs: max |d| <= 2^-6 max |cpu| over the tokens whose kept experts
+# agree (the expert products round to bfloat16 after float32 sums in other
+# orders, and ``silu`` and the down product carry a flip on). A token may
+# pick other experts than on the CPU only where its k-th and (k+1)-th
+# router logits lie within twice the measured max |d logit| (a near tie);
+# dispatch must be identical on every other token except those holding an
+# expert such a flip added or removed (their slots move).
+MOE_CPU_RTOL = 2.0 ** -6
+
+
+def moe_kept(r):
+    """Per token: (top-k experts sorted, kept mask in that order, slots)."""
+    e, order = torch.sort(r.top_e, dim=-1)
+    return (e, torch.gather(r.keep, -1, order),
+            torch.gather(r.slot, -1, order))
+
+
+def moe_vs_cpu(args) -> dict:
+    """Layer 0's MoE inputs (``_moe_ffn``'s arguments on the card) through
+    the port on the card and, carried over, on the CPU: dispatch and
+    outputs compared by the rule of MOE_CPU_RTOL."""
+    from repro_torch.models import transformer as T
+    x, router, wg, wu, wd, moe, rules = args
+    y_card, aux_card = T._moe_ffn(*args)
+    r_card = T.moe_route(x, router, moe, rules)
+    t0 = time.perf_counter()
+    cpu_args = [a.cpu() for a in (x, router, wg, wu, wd)]
+    y_cpu, aux_cpu = T._moe_ffn(*cpu_args, moe, rules)
+    cpu_s = time.perf_counter() - t0
+    r_cpu = T.moe_route(cpu_args[0], cpu_args[1], moe, rules)
+    k = moe.top_k
+    d_logit = float((r_card.logits.cpu() - r_cpu.logits).abs().max())
+    top = torch.sort(r_cpu.logits, dim=-1, descending=True).values
+    margin = top[..., k - 1] - top[..., k]                      # [G, Tl]
+    near = margin <= 2 * d_logit
+    card = [t.cpu() for t in moe_kept(r_card)]
+    cpu = moe_kept(r_cpu)
+    flipped = (card[0] != cpu[0]).any(-1)                       # [G, Tl]
+    require(bool(near[flipped].all()),
+            f"layer-0 MoE: {int((flipped & ~near).sum())} tokens pick other "
+            f"experts than on the CPU away from a near tie")
+    # per group, the experts a flipped token holds on one side only: their
+    # later arrivals take other slots
+    g, e = r_cpu.groups, moe.n_experts
+    on = [torch.zeros(g, r_cpu.top_e.shape[1], e, dtype=torch.bool)
+          .scatter_(-1, side[0], True) for side in (card, cpu)]
+    touched = ((on[0] ^ on[1]) & flipped[..., None]).any(1)     # [G, E]
+    exposed = flipped | (torch.gather(touched, 1, cpu[0].reshape(g, -1))
+                         .view(cpu[0].shape)).any(-1)
+    same = ((card[0] == cpu[0]) & (card[1] == cpu[1])
+            & (card[2] == cpu[2])).all(-1)
+    require(bool(same[~exposed].all()),
+            f"layer-0 MoE: dispatch differs from the CPU's on "
+            f"{int((~same & ~exposed).sum())} tokens away from a flip")
+    ok = (~exposed).reshape(-1)
+    got, ref = y_card.cpu().float()[ok], y_cpu.float()[ok]
+    diff = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    require(diff <= MOE_CPU_RTOL * scale,
+            f"layer-0 MoE vs the CPU: max|d| {diff} > {MOE_CPU_RTOL} * "
+            f"{scale}")
+    d_aux = abs(float(aux_card) - float(aux_cpu))
+    require(d_aux <= 1e-5, f"layer-0 MoE aux loss: |d| {d_aux}")
+    return {"tokens": int(x.shape[0]), "groups": r_cpu.groups,
+            "capacity": r_cpu.capacity, "max_abs_logit_diff": d_logit,
+            "near_tie_tokens": int(near.sum()),
+            "flipped_tokens": int(flipped.sum()),
+            "tokens_excluded": int(exposed.sum()),
+            "dispatch_identical_elsewhere": True, "max_abs_diff": diff,
+            "max_abs_cpu": scale, "aux_abs_diff": d_aux,
+            "dropped_share": 1.0 - float(r_cpu.keep.float().mean()),
+            "cpu_seconds": cpu_s,
+            "tolerance": f"max|d| <= 2^-6 max|cpu| off near ties; aux 1e-5"}
+
+
+def moe_split_ms(args) -> dict:
+    """Layer 0's MoE call timed on the card (``device_ms``), beside its
+    routing alone and its three expert products alone on a buffer of the
+    same shape: the dispatch and combine take the rest."""
+    import torch.nn.functional as F
+    from repro_torch.models import transformer as T
+    x, router, wg, wu, wd, moe, rules = args
+    r = T.moe_route(x, router, moe, rules)
+    buf = torch.zeros(moe.n_experts, r.groups * r.capacity, x.shape[1],
+                      dtype=x.dtype, device=x.device)
+    cyc = _cycles_per_ms()
+    full = device_ms(lambda: T._moe_ffn(*args), cyc, runs=10)["ms"]
+    route = device_ms(lambda: T.moe_route(x, router, moe, rules), cyc,
+                      runs=10)["ms"]
+    experts = device_ms(lambda: torch.bmm(
+        F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu), wd), cyc,
+        runs=10)["ms"]
+    return {"moe_ms": full, "route_ms": route, "experts_ms": experts,
+            "dispatch_combine_ms": full - experts,
+            "dispatch_combine_share": (full - experts) / full,
+            "buffer": list(buf.shape),
+            "timing": "events, back to back behind a spin kernel"}
+
+
+@contextlib.contextmanager
+def moe_drop_counter(keep_experts: bool = False):
+    """Count kept and total (token, expert) assignments of every MoE call
+    (tensors summed on the card, read once at the end); with
+    ``keep_experts`` also hold each call's experts per token, sorted, as
+    [T, K] (``experts``, one entry per call)."""
+    from repro_torch.models import transformer as T
+    real = T.moe_route
+    kept, experts = [], []
+
+    def counting(*a, **kw):
+        r = real(*a, **kw)
+        kept.append((r.keep.sum(), r.keep.numel()))
+        if keep_experts:
+            experts.append(torch.sort(r.top_e, dim=-1).values.reshape(
+                -1, r.top_e.shape[-1]))
+        return r
+    T.moe_route = counting
+    out = {"experts": experts}
+    try:
+        yield out
+    finally:
+        T.moe_route = real
+        n = sum(m for _, m in kept)
+        out.update(calls=len(kept), assignments=n, dropped_share=(
+            1.0 - float(sum(s.item() for s, _ in kept)) / n) if n else 0.0)
+
+
+def moe_decode_vs_forward(arch, cfg, params, tokens) -> dict:
+    """Under a no-drop capacity (``capacity_factor = n_experts / top_k``),
+    prefill, MOE_CHECK_STEPS greedy decode steps, and a cache-free forward
+    over the prompt and the generated tokens: the decode logits against
+    the forward's by the rule of ``phase_lm``, at every position whose
+    experts are the forward's in every layer. Where the two paths' bf16
+    hidden states (rounded at other places) put a token's k-th and
+    (k+1)-th router logits in another order, the token takes another
+    expert, and its logits move by that expert's share: such positions
+    are counted and their max |d| reported. With the real capacity the
+    paths differ by design: capacity depends on the token count."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    nd = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    n, b = MOE_CHECK_STEPS, tokens.shape[0]
+    logits, cache = steps.make_serve_step(
+        arch, "prefill_32k", nd, max_len=MOE_PROMPT + n)(params, tokens)
+    decode = steps.make_serve_step(arch, "decode_32k", nd)
+    gen, dec = [logits[:, -1].argmax(-1)[:, None]], []
+    with moe_drop_counter(keep_experts=True) as dec_calls:
+        for i in range(n):
+            lg, cache = decode(params, gen[-1], cache, MOE_PROMPT + i)
+            dec.append(lg[:, 0])
+            gen.append(lg[:, -1].argmax(-1)[:, None])
+    del cache
+    seq = torch.cat([tokens] + [g.to(tokens.dtype) for g in gen[:-1]], 1)
+    with moe_drop_counter(keep_experts=True) as fwd_calls:
+        hidden, _, _ = T.forward(nd, params, seq)
+    ref = T.logits_fn(nd, params, hidden[:, MOE_PROMPT:])
+    del hidden
+    require(fwd_calls["dropped_share"] == 0.0
+            and dec_calls["dropped_share"] == 0.0,
+            f"no-drop capacity dropped {fwd_calls['dropped_share']} / "
+            f"{dec_calls['dropped_share']}")
+    # experts per (layer, sequence, step): decode's against the forward's
+    k = cfg.moe.top_k
+    d_exp = torch.stack(dec_calls["experts"]).view(n, cfg.n_layers, b, k)
+    f_exp = torch.stack(fwd_calls["experts"]).view(
+        cfg.n_layers, b, MOE_PROMPT + n, k)[:, :, MOE_PROMPT:]
+    other = (d_exp.permute(1, 2, 0, 3) != f_exp).any(-1)    # [L, B, n]
+    clean = ~other.any(0)                                    # [B, n]
+    got = torch.stack(dec, 1)
+    d = (got - ref).abs().amax(-1)                           # [B, n]
+    diff = d[clean].max().item() if bool(clean.any()) else 0.0
+    scale = ref.abs().max().item()
+    require(diff <= BF16_MODEL_RTOL * scale,
+            f"MoE decode vs cache-free forward: max|d| {diff} > "
+            f"{BF16_MODEL_RTOL} * {scale} where the experts agree")
+    argmax = check_argmax(got[clean][None], ref[clean][None][..., :cfg.vocab],
+                          diff)
+    return {"steps": n, "capacity_factor": nd.moe.capacity_factor,
+            "positions": b * n, "positions_same_experts": int(clean.sum()),
+            "routing_decisions_differing": int(other.sum()),
+            "routing_decisions": int(other.numel()),
+            "max_abs_diff": diff, "max_abs_logit": scale,
+            "max_abs_diff_other_experts": d[~clean].max().item()
+            if bool((~clean).any()) else None,
+            "layers_first_differing": other.any(-1).any(-1).nonzero()
+            .flatten().tolist()[:8],
+            "forward_dropped_share": 0.0, **argmax,
+            "tolerance": f"where a position's experts agree in every layer: "
+                         f"max|d| <= {BF16_MODEL_RTOL} * max|ref|; argmax "
+                         f"identical where the reference's top-2 margin > "
+                         f"2 max|d| (at least {LM_STRICT_MIN} positions)"}
+
+
+def phase_lm_moe(seed: int, dev) -> dict:
+    """The MoE LMs at full width (bf16 compute): prefill 4 x 4096 prompts,
+    greedy decode steps, K6 on "mma" at prefill and "split" at decode
+    counted per layer; layer 0's MoE against the CPU; decode against a
+    cache-free forward under no-drop capacity; drops, a profile, the MoE
+    layer's time split and K6 at the MoE shapes. Returns the launch counts
+    and K6's main-path measurements."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    launches, main = {}, {}
+    for arch_id, n_layers, n_decode in MOE_CELLS:
+        arch = get_arch(arch_id)
+        cfg = arch.config()
+        reduced = ["prefill_32k: batch 32 x 32768 -> 4 x 4096 (time limit)",
+                   f"decode_32k: batch 128 x 32768 cache -> 4 x "
+                   f"{MOE_PROMPT + n_decode} (one card's memory)",
+                   "long_500k not run"]
+        if n_layers is not None:
+            reduced.insert(0, f"n_layers {cfg.n_layers} -> {n_layers} (fp32 "
+                              f"master weights of all layers: "
+                              f"{cfg.param_count() * 4 / 1e9:.1f} GB)")
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        master = steps.init_fn(arch, "prefill_32k", cfg, device=dev)(seed)
+        params = T.compute_params(cfg, master)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        master_bytes = tree_bytes(master)
+        del master
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            1, cfg.vocab, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)).to(dev)
+        max_len = MOE_PROMPT + n_decode
+        prefill = steps.make_serve_step(arch, "prefill_32k", cfg,
+                                        max_len=max_len)
+        decode = steps.make_serve_step(arch, "decode_32k", cfg)
+
+        with first_call(fa, "flash_attention") as seen_fa, \
+                first_call(T, "_moe_ffn") as seen_moe, \
+                moe_drop_counter() as pre_drops:         # warm-up run
+            logits, cache = prefill(params, tokens)
+        pre_args, pre_moe = seen_fa[0], seen_moe[0][0]
+        del logits, cache
+        reset_model_launches()
+        (logits, cache), prefill_ms = synced_ms(
+            lambda: prefill(params, tokens))
+        got = {"prefill": model_launches()}
+        require(got["prefill"]["flash_attention_routes"] == fa_routes(
+            mma=cfg.n_layers), f"{arch_id} prefill: K6 launches by route "
+                               f"{got['prefill']['flash_attention_routes']}, "
+                               f"expected {cfg.n_layers} on mma")
+        require(bool(torch.isfinite(logits).all()),
+                f"{arch_id} prefill: non-finite logits")
+        cache_bytes = tree_bytes(cache)
+
+        gen = [logits[:, -1].argmax(-1)[:, None]]
+        dec_logits, dec_args, dec_moe = [], None, None
+        reset_model_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_decode):
+            if i == 1:
+                with first_call(fa, "flash_attention") as seen_fa, \
+                        first_call(T, "_moe_ffn") as seen_moe:
+                    lg, cache = decode(params, gen[-1], cache,
+                                       MOE_PROMPT + i)
+                dec_args, dec_moe = seen_fa[0], seen_moe[0][0]
+            else:
+                lg, cache = decode(params, gen[-1], cache, MOE_PROMPT + i)
+            dec_logits.append(lg[:, 0])
+            gen.append(lg[:, -1].argmax(-1)[:, None])
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n_decode
+        got["decode"] = model_launches()
+        require(got["decode"]["flash_attention_routes"] == fa_routes(
+            split=cfg.n_layers * n_decode),
+            f"{arch_id} decode: K6 launches by route "
+            f"{got['decode']['flash_attention_routes']}, expected "
+            f"{cfg.n_layers} per step on split")
+        dec = torch.stack(dec_logits, 1)
+        require(bool(torch.isfinite(dec).all()),
+                f"{arch_id} decode: non-finite logits")
+        peak = torch.cuda.max_memory_allocated()
+        # the decode steps again, uncounted, for their drops (the cache
+        # rows they write hold the same values); bit-equal logits show the
+        # steps are deterministic
+        with moe_drop_counter() as dec_drops:
+            replay = [decode(params, gen[i], cache, MOE_PROMPT + i)[0][:, 0]
+                      for i in range(n_decode)]
+        replay_equal = all(torch.equal(a, b)
+                           for a, b in zip(replay, dec_logits))
+        del replay
+
+        checks = {"layer0_moe_vs_cpu": {"prefill": moe_vs_cpu(pre_moe),
+                                        "decode": moe_vs_cpu(dec_moe)}}
+        prof = {"prefill": profile_call(lambda: prefill(params, tokens),
+                                        warm=False),
+                "decode_step": profile_call(lambda: decode(
+                    params, gen[-1], cache, max_len - 1), warm=False)}
+        split = {"prefill": moe_split_ms(pre_moe),
+                 "decode": moe_split_ms(dec_moe)}
+        for key, step in (("prefill", "prefill"), ("decode", "decode_step")):
+            split[key]["moe_share_of_device_busy"] = (
+                split[key]["moe_ms"] * cfg.n_layers
+                / prof[step]["device_busy_ms"])
+        del cache, logits, dec, pre_moe, dec_moe
+        torch.cuda.empty_cache()
+        checks["decode_vs_cache_free_forward"] = moe_decode_vs_forward(
+            arch, cfg, params, tokens)
+        fa_main = {"prefill": measure_fa(*pre_args, per_sequence_plain=True),
+                   "decode": measure_fa(*dec_args, per_sequence_plain=False)}
+        del pre_args, dec_args
+        short = arch_id.split("-")[0]
+        launches[f"moe_{short}_prefill"] = got["prefill"]
+        launches[f"moe_{short}_decode"] = got["decode"]
+        main[f"prefill_moe_{short}"] = fa_main["prefill"]
+        main[f"decode_moe_{short}"] = fa_main["decode"]
+        moe = cfg.moe
+        emit("lm_moe", arch=arch_id, source=arch.source,
+             config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                     "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                     "vocab": cfg.vocab, "n_experts": moe.n_experts,
+                     "top_k": moe.top_k, "d_ff_expert": moe.d_ff_expert,
+                     "capacity_factor": moe.capacity_factor,
+                     "compute_dtype": str(cfg.compute_dtype),
+                     "param_dtype": str(cfg.param_dtype)},
+             params=cfg.param_count(), active_params=cfg.active_param_count(),
+             init_seconds=init_s,
+             device_bytes={"params_master": master_bytes,
+                           "params_compute": tree_bytes(params),
+                           "kv_cache": cache_bytes, "peak": peak},
+             prefill={"batch": MOE_BATCH, "prompt": MOE_PROMPT,
+                      "max_len": max_len, "ms": prefill_ms,
+                      "tokens_per_s": MOE_BATCH * MOE_PROMPT / prefill_ms
+                      * 1e3, "capacity": T.moe_capacity(
+                          MOE_BATCH * MOE_PROMPT, moe),
+                      "dropped_share": pre_drops["dropped_share"]},
+             decode={"steps": n_decode, "ms_per_step": decode_ms,
+                     "tokens_per_s": MOE_BATCH / decode_ms * 1e3,
+                     "capacity": T.moe_capacity(MOE_BATCH, moe),
+                     "dropped_share": dec_drops["dropped_share"],
+                     "replay_bit_equal": replay_equal},
+             launches=got, check=checks, profile=prof, moe_split=split,
+             kernel_check={k: {f: v[f] for f in ("route", "max_abs_err",
+                                                 "wrong_outputs_rejected",
+                                                 "shape") if f in v}
+                           for k, v in fa_main.items()},
+             kernel_ms={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}
+                        for k, v in fa_main.items()},
+             reduced=reduced, nvidia_smi=nvidia_smi())
+        del params, tokens
+        torch.cuda.empty_cache()
+    emit("lm_moe", step="summary", seconds=time.perf_counter() - t_phase)
+    return {"launches": launches, "main": main}
+
+
+# --------------------------------------------------------------------------
+# launcher: repro_torch.launch.serve in-process, K2
+# --------------------------------------------------------------------------
+
+LAUNCH_DOCS = 131072
+LAUNCH_RUNS = (
+    ("kernel", ["--engine", "kernel", "--routing", "table8", "--k-mix", "10",
+                "100", "--cache", "256", "--requests", "256", "--retries",
+                "3", "--trace", "--metrics-port", "0"]),
+    ("sharded", ["--shards", "4", "--exchange-every", "8", "--requests",
+                 "64"]),
+    ("swap", ["--swap-demo", "--executors", "2", "--requests", "64"]))
+
+
+@contextlib.contextmanager
+def sampled_calls(module, name, limit: int = 12):
+    """Record copies of the arguments of calls 0, 1, 2, 4, 8, ... of
+    ``module.name`` and of each call whose tensor shapes are new, at most
+    ``limit`` (the callers look the function up on the module at each
+    call): early and late steps of the path. The list holds (args,
+    kwargs) pairs."""
+    real = getattr(module, name)
+    seen, shapes, count = [], set(), [0]
+
+    def copy(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def spy(*args, **kwargs):
+        i = count[0]
+        count[0] += 1
+        shape = tuple(tuple(a.shape) for a in args
+                      if isinstance(a, torch.Tensor))
+        if len(seen) < limit and (i & (i - 1) == 0 or shape not in shapes):
+            shapes.add(shape)
+            seen.append(([copy(a) for a in args],
+                         {k: copy(v) for k, v in kwargs.items()}))
+        return real(*args, **kwargs)
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def metrics_probe():
+    """While the launcher's ``MetricsServer`` runs, fetch its
+    ``/metrics.json`` from 127.0.0.1 every 250 ms; yields a list holding
+    the fetched snapshots."""
+    import threading
+    import urllib.request
+    import repro_torch.obs as obs
+    real = obs.MetricsServer
+    fetched = []
+
+    class Probed(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._probe_stop = threading.Event()
+            url = f"http://127.0.0.1:{self.port}/metrics.json"
+
+            def poll():
+                while not self._probe_stop.wait(0.25):
+                    try:
+                        with urllib.request.urlopen(url, timeout=2) as r:
+                            fetched.append(json.loads(r.read()))
+                    except OSError:
+                        pass
+            self._probe = threading.Thread(target=poll, daemon=True)
+            self._probe.start()
+
+        def close(self):
+            self._probe_stop.set()
+            self._probe.join()
+            super().close()
+    obs.MetricsServer = Probed
+    try:
+        yield fetched
+    finally:
+        obs.MetricsServer = real
+
+
+def phase_launcher(smi: str) -> dict:
+    """``repro_torch.launch.serve.main`` in-process on the card at
+    LAUNCH_DOCS documents, once per LAUNCH_RUNS entry: the printed stats'
+    request counts, K2 launched by the kernel and sharded runs (counted
+    from 0 around each run), cache hits, the swap's generation, and
+    ``/metrics.json`` fetched while the kernel run serves, and K2 held
+    bit for bit against its plain version on the arguments the kernel and
+    sharded runs gave it. Returns K2's launches per run."""
+    import repro_torch.data as data
+    t_phase = time.perf_counter()
+    counts = {}
+    # the three runs draw the same seeded corpus: make it once
+    real_corpus = data.make_corpus
+    data.make_corpus = functools.lru_cache(maxsize=1)(real_corpus)
+    try:
+        for name, extra in LAUNCH_RUNS:
+            counts[name] = launcher_run(name, extra, smi)
+    finally:
+        data.make_corpus = real_corpus
+    emit("launcher", step="summary", seconds=time.perf_counter() - t_phase,
+         corpus="made once (make_corpus, seed 0), shared by the runs",
+         reduced=[f"--docs {LAUNCH_DOCS} (the launcher's default 16384)"])
+    return counts
+
+
+def launcher_run(name: str, extra: list, smi: str) -> int:
+    """One launcher run (``phase_launcher``); returns its K2 launches."""
+    import ast
+    import io
+    from repro_torch.core import traversal
+    from repro_torch.kernels import guided_score as gs
+    from repro_torch.launch import serve
+    argv = ["--docs", str(LAUNCH_DOCS), *extra]
+    out = io.StringIO()
+    gs.reset_launches()
+    with contextlib.redirect_stdout(out), metrics_probe() as fetched, \
+            sampled_calls(traversal, "guided_score_tile") as k2_calls:
+        t0 = time.perf_counter()
+        stats = serve.main(argv)
+        seconds = time.perf_counter() - t0
+    ran = {fn.__name__: fn.launches for fn in gs.KERNELS}
+    text = out.getvalue().splitlines()
+    printed = ast.literal_eval([ln for ln in text
+                                if ln.startswith("{'n':")][-1])
+    n_req = int(extra[extra.index("--requests") + 1])
+    require(printed == stats, f"launcher {name}: printed stats differ")
+    require(stats["n"] == (n_req // 2 if "--swap-demo" in extra
+                           else n_req) and stats["submitted"] == n_req
+            and stats["completed"] == n_req and stats["failed"] == 0,
+            f"launcher {name}: n {stats['n']}, completed "
+            f"{stats['completed']} of {n_req}")
+    require(sum(stats["requests_by_route"].values()) == n_req,
+            f"launcher {name}: requests by route "
+            f"{stats['requests_by_route']}")
+    probe, k2 = None, None
+    if name in ("kernel", "sharded"):
+        require(ran["guided_score_tile"] > 0 and sum(ran.values())
+                == ran["guided_score_tile"],
+                f"launcher {name}: launches {ran}, expected K2 only")
+        require(len(k2_calls) > 0, f"launcher {name}: no K2 call captured")
+        # after the counts were read: these launches are not the path's
+        k2 = {"calls_compared": len(k2_calls),
+              "offs_shapes": sorted({tuple(a[0].shape)
+                                     for a, _ in k2_calls}),
+              "max_abs_err": max(compare(
+                  f"launcher {name} K2 call {i}", gs.guided_score_tile(
+                      *a, **kw), gs.guided_score_tile_plain(*a, **kw))
+                  for i, (a, kw) in enumerate(k2_calls)),
+              "tolerance": "rows 0-2 bit-equal, masks identical"}
+    if name == "kernel":
+        require(stats["cache_hits"] > 0, "launcher kernel: no cache hit")
+        require(bool(fetched) and "metrics" in fetched[-1]
+                and fetched[-1].get("extra", {}).get("submitted", 0)
+                > 0, f"launcher kernel: /metrics.json fetched "
+                     f"{len(fetched)} times, last {str(fetched[-1:])[:200]}")
+        probe = {"fetches": len(fetched),
+                 "last_submitted": fetched[-1]["extra"]["submitted"],
+                 "metrics_keys": sorted(fetched[-1]["metrics"])}
+    if name == "swap":
+        require(stats["generation"] == 1 and any(
+            ln.startswith("# hot-swap: installed generation 1")
+            for ln in text), "launcher swap: generation 1 not installed")
+    emit("launcher", run=name, argv=argv, seconds=seconds,
+         launches=ran, printed=[ln[:300] for ln in text
+                               if ln.startswith("# ")][:12],
+         stats={k: stats[k] for k in (
+             "n", "submitted", "completed", "failed", "batches",
+             "cache_hits", "requests_by_route", "generation",
+             "cache_gen_evictions", "rejected", "retries", "mrt_ms",
+             "p50_ms", "p99_ms", "qps_achieved")},
+         metrics_json=probe, k2_vs_plain=k2, nvidia_smi=smi)
+    return ran["guided_score_tile"]
+
+
 def cell_inputs(arch, shape, cfg, seed, dev) -> dict:
     """A recsys cell's inputs at its full size (RECSYS_SHAPE_DEFS): ids
     drawn by numpy from ``seed``, float arrays by a generator on the
@@ -2828,6 +3393,9 @@ def main() -> int:
 
     lm = phase_lm(args.seed, dev)
     torch.cuda.empty_cache()
+    moe = phase_lm_moe(args.seed, dev)
+    torch.cuda.empty_cache()
+    launcher_launches = phase_launcher(smi)
     rec = phase_recsys(args.seed, dev)
     sweep = phase_model_kernels(dev)
     model_main = {"flash_attention": lm["main"]["prefill"],
@@ -2836,6 +3404,7 @@ def main() -> int:
         "decode": lm["main"]["decode"],
         "prefill_f32": lm["main"]["prefill_f32"],
         "decode_f32": lm["main"]["decode_f32"],
+        **moe["main"],
         "bert4rec": rec["main"]["bert4rec"]},
                    "embedding_bag": {"two-tower-retrieval":
                                      rec["main"]["two-tower-retrieval"]}}
@@ -2843,7 +3412,8 @@ def main() -> int:
          tolerance="embedding_bag bit-equal; flash_attention " + FA_TOLERANCE)
     model_counts = {name: 0 for name in model_kernels()}
     route_counts = fa_routes()
-    for counts in (*lm["launches"].values(), *rec["launches"].values()):
+    for counts in (*lm["launches"].values(), *moe["launches"].values(),
+                   *rec["launches"].values()):
         for name in model_counts:
             model_counts[name] += counts[name]
         for way, n in counts["flash_attention_routes"].items():
@@ -2868,7 +3438,9 @@ def main() -> int:
          **({"sharded_launches": sharded_launches[name]}
             if name in sharded_launches else {}),
          **({"hybrid_launches": hybrid_launches[name]}
-            if name in hybrid_launches else {})}
+            if name in hybrid_launches else {}),
+         **({"launcher_launches": launcher_launches}
+            if name == "guided_score_tile" else {})}
         for name, (cu, line) in where.items()]}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, cu, line in (("flash_attention", "flash_attention_mma.cu", 29),
@@ -2889,9 +3461,14 @@ def main() -> int:
         require(model_counts[name] > 0, f"{name} never launched on its path")
     # K6 by route: mma at prefill (and bert4rec), split at decode, f32 at
     # the float32 prefill and decode
+    moe_main = moe["main"]
     fa_main = {"mma": {"prefill": lm["main"]["prefill"],
+                       **{k: v for k, v in moe_main.items()
+                          if k.startswith("prefill")},
                        "bert4rec": rec["main"]["bert4rec"]},
-               "split": {"decode": lm["main"]["decode"]},
+               "split": {"decode": lm["main"]["decode"],
+                         **{k: v for k, v in moe_main.items()
+                            if k.startswith("decode")}},
                "f32": {"prefill_f32": lm["main"]["prefill_f32"],
                        "decode_f32": lm["main"]["decode_f32"]}}
     summary["kernels"][-2]["routes"] = {

@@ -20,7 +20,8 @@ A batch of queries runs as one scan (``_guided_scan``): every row keeps its
 own block order and thresholds, and the block loop is a fixed host loop of
 ``n_blocks`` steps with no read back to the host (the scan has no
 data-dependent exit). The products are plain float32 matrix products; on a
-GPU they must not run in TF32 (``_check_full_f32``).
+GPU they must not run in TF32 (``index.check_full_f32``): TF32 would
+move the scores far outside their tolerance.
 """
 from __future__ import annotations
 
@@ -28,20 +29,11 @@ import dataclasses
 
 import torch
 
-from .index import resolve_device
+from .index import check_full_f32, resolve_device
 from .traversal import _as_tensor, _f32, _merge_queue, _topk_stable
 from .twolevel import TwoLevelParams, resolve_k
 
 TENSOR_FIELDS = ("emb", "bmax", "bmin", "rotation")
-
-
-def _check_full_f32(device: torch.device) -> None:
-    """The dense scores are float32 products; TF32 would change them by
-    about 1e-3 relative, far outside the scores' tolerance."""
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "dense retrieval needs full float32 matrix products, but TF32 "
-            "is on (torch.backends.cuda.matmul.allow_tf32 = True)")
 
 
 @dataclasses.dataclass
@@ -85,7 +77,7 @@ def build_dense_index(emb, block_size: int = 4096, d_cheap: int = 32,
     Dot products are rotation-invariant, so exact scores are unchanged.
     ``emb`` [N, D] (numpy or tensor) is placed on ``device`` as float32."""
     dev = resolve_device(device)
-    _check_full_f32(dev)
+    check_full_f32(dev, "dense retrieval")
     emb = _as_tensor(emb, torch.float32, dev)
     n, d = emb.shape
     cov = (emb.T @ emb) / n
@@ -171,7 +163,7 @@ def retrieve_dense_batched(index: DenseGuidedIndex, q,
     ``(scores [B, k], ids [B, k], stats)`` with a per-query float32
     ``candidates_fully_scored`` array. Rank-safe configs reduce to the
     exact ``[B, D] @ [N, D]^T`` top-k the blocks implement."""
-    _check_full_f32(index.device)
+    check_full_f32(index.device, "dense retrieval")
     q = _as_tensor(q, torch.float32, index.device)
     if q.ndim != 2:
         raise ValueError(f"retrieve_dense_batched takes [B, D] queries, "
@@ -188,7 +180,7 @@ def retrieve_dense(index: DenseGuidedIndex, q, params: TwoLevelParams,
     """Top-k candidates for one query ``q`` [D]. Returns (scores, ids,
     stats). ``k`` is the per-call retrieval depth (legacy ``params.k``
     fallback)."""
-    _check_full_f32(index.device)
+    check_full_f32(index.device, "dense retrieval")
     q = index.rotate_query(_as_tensor(q, torch.float32, index.device))
     rv, ri, scored = _guided_scan(index, q[None], params,
                                   resolve_k(params, k))
@@ -200,7 +192,7 @@ def retrieve_dense(index: DenseGuidedIndex, q, params: TwoLevelParams,
 def exhaustive_dense(index: DenseGuidedIndex, q, k: int):
     """Exact top-k of one query over every row of ``index.emb``, the zero
     pad rows included, as the reference computes it."""
-    _check_full_f32(index.device)
+    check_full_f32(index.device, "dense retrieval")
     q = _as_tensor(q, torch.float32, index.device)
     vals, ids = _topk_stable(index.emb @ index.rotate_query(q), k)
     return vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy()

@@ -36,6 +36,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def check_full_f32(device: torch.device, what: str) -> None:
+    """Raise if float32 matrix products on ``device`` would run in TF32,
+    which changes them by about 1e-3 relative; ``what`` names the caller
+    that needs them in full."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            f"{what} needs full float32 matrix products, but TF32 is on "
+            f"(torch.backends.cuda.matmul.allow_tf32 = True)")
+
+
 @dataclasses.dataclass
 class BlockedImpactIndex:
     n_docs: int

@@ -1,11 +1,12 @@
 """Step factory: (arch x shape) -> the serve step of a cell.
 
 The port of ``repro.launch.steps``'s serving half. ``make_serve_step``
-returns, per family: for the LM, prefill (prompt -> last logits and a KV
-cache) and decode (one token against the cache); for each recsys model,
-its ``serve`` step (a batch of requests, or requests x a shortlist) and its
-``retrieval`` step (one query against a candidate set, top-100). The train
-steps, ``state_specs`` and the GNN family are not ported yet.
+returns, per family: for the LMs, dense and MoE, prefill (prompt -> last
+logits and a KV cache) and decode (one token against the cache); for each
+recsys model, its ``serve`` step (a batch of requests, or requests x a
+shortlist) and its ``retrieval`` step (one query against a candidate set,
+top-100). The train steps, ``state_specs`` and the GNN family (whose cells
+the reference only trains) are not ported yet.
 """
 from __future__ import annotations
 

@@ -1,25 +1,28 @@
-"""Decoder-style transformer LM: RoPE / GQA / SwiGLU / RMSNorm, optional
-bidirectional mode with learned positions (BERT4Rec reuses this), optional
-SPLADE-style sparse head.
+"""Decoder-style transformer LM: RoPE / GQA / SwiGLU / RMSNorm, optional MoE
+(sort-based static-capacity dispatch), optional bidirectional mode with
+learned positions (BERT4Rec reuses this), optional SPLADE-style sparse head.
 
-The port of ``repro.models.transformer``'s dense path, as plain functions
+The port of ``repro.models.transformer``'s serving path, as plain functions
 over a parameter dict with the reference's layout: layer weights stacked
 ``[L, ...]`` and applied as ``x @ W``, so parameters carry over unchanged
 (``bridge.transformer_params_from_arrays``). Attention runs through the
 hand-written flash-attention kernel (``kernels.flash_attention``) on CUDA
-tensors and its plain version on CPU tensors; the projections, the FFN and
-the logits are ``torch.matmul``.
+tensors and its plain version on CPU tensors; the projections, the FFN
+(dense or MoE: the expert products are batched ``torch.bmm``) and the
+logits are ``torch.matmul``.
 
 Mixed precision: parameters are stored in ``param_dtype`` (fp32 by
 default) and every weight is cast to ``compute_dtype`` where it is used, as
 in the reference. ``compute_params`` makes that cast once, ahead of serving;
 the values are the same. Logits are float32 at any compute dtype.
 
-Single-card semantics: ``Rules`` (sharding hints), ``remat``,
+Single-card semantics: ``Rules``' sharding hints, ``remat``,
 ``remat_policy``, ``unroll`` and ``attn_chunk`` are kept so that the
-configs read as the reference's, and have no effect here. MoE layers
-(``moe``) and the training loss are not ported yet. A KV cache is updated
-in place (the reference returns a new one) and returned.
+configs read as the reference's, and have no effect here; ``Rules.dp_size``
+does, as the MoE layer's number of dispatch groups. ``forward`` returns the
+MoE layers' summed load-balancing loss; the training loss is not ported
+yet. A KV cache is updated in place (the reference returns a new one) and
+returned.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..core.index import check_full_f32
+from ..core.traversal import _topk_stable
 from ..kernels import flash_attention as fa
 
 
@@ -103,7 +108,10 @@ class TransformerConfig:
 @dataclasses.dataclass(frozen=True)
 class Rules:
     """Logical-axis -> mesh-axis names, as the reference's. On one card
-    they shard nothing: ``c`` returns its input, ``w`` only casts."""
+    they shard nothing: ``c`` returns its input, ``w`` only casts. One
+    field is semantics, not a hint: ``dp_size`` sets the MoE layer's
+    number of dispatch groups, and capacity (which assignments drop) is
+    per group."""
     batch: Any = None
     heads: Any = None
     kv_seq: Any = None
@@ -139,10 +147,8 @@ def dequantize_kv(q, scale, dtype):
 # --------------------------------------------------------------------------
 
 def param_shapes(cfg: TransformerConfig) -> dict:
-    """The parameter tree's shapes, in the reference's layout."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported to repro_torch "
-                                  "yet")
+    """The parameter tree's shapes, in the reference's layout (MoE: a
+    router ``[L, d, E]`` and per-expert FFN weights ``[L, E, ...]``)."""
     d, dh = cfg.d_model, cfg.head_dim
     h, hkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
     shapes = {
@@ -152,10 +158,16 @@ def param_shapes(cfg: TransformerConfig) -> dict:
             "attn_norm": (n, d), "ffn_norm": (n, d),
             "wq": (n, d, h * dh), "wk": (n, d, hkv * dh),
             "wv": (n, d, hkv * dh), "wo": (n, h * dh, d),
-            "w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
-            "w_down": (n, cfg.d_ff, d),
         },
     }
+    if cfg.moe is not None:
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        shapes["layers"].update(router=(n, d, e), w_gate=(n, e, d, f),
+                                w_up=(n, e, d, f), w_down=(n, e, f, d))
+    else:
+        shapes["layers"].update(w_gate=(n, d, cfg.d_ff),
+                                w_up=(n, d, cfg.d_ff),
+                                w_down=(n, cfg.d_ff, d))
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.padded_vocab)
     if cfg.max_position:
@@ -240,6 +252,132 @@ def _dense_ffn(x, w_gate, w_up, w_down, rules: Rules):
     return (F.silu(hg) * hu) @ rules.w(w_down, x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoEDispatch:
+    """One MoE layer's routing of T = G x Tl tokens, per dispatch group;
+    assignments [G, Tl, K] in each token's top-k order (descending
+    probability, the lower expert first among ties)."""
+    capacity: int               # slots per (group, expert)
+    logits: torch.Tensor        # [G, Tl, E] float32
+    probs: torch.Tensor         # [G, Tl, E] float32 softmax
+    top_e: torch.Tensor         # [G, Tl, K] int64 experts
+    top_p: torch.Tensor         # [G, Tl, K] float32, summing to 1 per token
+    slot: torch.Tensor          # [G, Tl, K] int64 arrival rank in the expert
+    keep: torch.Tensor          # [G, Tl, K] bool: slot < capacity
+
+    @property
+    def groups(self) -> int:
+        return self.top_e.shape[0]
+
+
+def moe_groups(t: int, dp_size: int) -> int:
+    """The reference's dispatch group count for ``t`` tokens: ``dp_size``,
+    or for a ``t`` it does not divide (tiny decode batches) the largest
+    power of two <= ``dp_size`` that divides ``t``."""
+    g = max(1, dp_size)
+    if t % g != 0:
+        g = 1
+        while t % (g * 2) == 0 and g * 2 <= dp_size:
+            g *= 2
+    return g
+
+
+def moe_capacity(tokens_per_group: int, moe: MoEConfig) -> int:
+    """Slots per (group, expert), in Python floats as the reference."""
+    return int(tokens_per_group * moe.top_k * moe.capacity_factor
+               / moe.n_experts + 1)
+
+
+def moe_route(x, router, moe: MoEConfig, rules: Rules = NO_RULES
+              ) -> MoEDispatch:
+    """Token-choice top-k routing of x [T, D] with group-wise capacity
+    (GShard), as the reference's ``_moe_ffn``: float32 logits of the
+    compute-dtype operands (each product exact in float32), a float32
+    softmax, a stable top-k, and within each group an expert's slots
+    filled in (token, rank) order: a stable sort by expert, its start by
+    ``searchsorted``."""
+    t, d = x.shape
+    e, k = moe.n_experts, moe.top_k
+    g = moe_groups(t, rules.dp_size)
+    tl = t // g
+    # TF32 would change the logits, and with them the experts picked
+    check_full_f32(x.device, "the MoE router")
+    logits = x.view(g, tl, d).float() @ rules.w(router, x.dtype).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _topk_stable(probs, k)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    sorted_e, order = torch.sort(top_e.reshape(g, tl * k), dim=-1,
+                                 stable=True)
+    experts = torch.arange(e, device=x.device).expand(g, e).contiguous()
+    start = torch.searchsorted(sorted_e, experts, side="left")
+    rank = (torch.arange(tl * k, device=x.device)
+            - torch.gather(start, 1, sorted_e))
+    slot = torch.empty_like(rank).scatter_(1, order, rank).view(g, tl, k)
+    cap = moe_capacity(tl, moe)
+    return MoEDispatch(cap, logits, probs, top_e, top_p, slot, slot < cap)
+
+
+def _moe_rows(r: MoEDispatch) -> torch.Tensor:
+    """[G, Tl, K]: each kept assignment's row of the E-major expert buffer
+    [E, G, C] flattened; a dropped assignment gets row 0 (``_moe_combine``
+    gives it weight 0)."""
+    g, _, _ = r.top_e.shape
+    grp = torch.arange(g, device=r.top_e.device).view(g, 1, 1)
+    return torch.where(r.keep, (r.top_e * g + grp) * r.capacity + r.slot, 0)
+
+
+def _moe_combine(out_rows, row, r: MoEDispatch) -> torch.Tensor:
+    """y [T, D]: each token's k expert outputs (rows of ``out_rows``
+    [E x G x C, D]), each times its weight in the output's dtype, added
+    from zero in ascending-expert order: the order of the reference's
+    scatter-add over the expert-sorted assignments (one token's k experts
+    are distinct). A dropped assignment adds row 0 times a zero weight:
+    a signed zero, so y is bit-equal to adding nothing, as the reference's
+    zero rows add nothing. Plain adds, no atomics, so the sum is the same
+    on every run."""
+    k = row.shape[-1]
+    by_expert = torch.argsort(r.top_e, dim=-1, stable=True)
+    row = torch.gather(row, -1, by_expert).view(-1, k)
+    w = torch.where(r.keep, r.top_p, 0.0)
+    w = torch.gather(w, -1, by_expert).to(out_rows.dtype).view(-1, k, 1)
+    y = out_rows.new_zeros(row.shape[0], out_rows.shape[-1])
+    for j in range(k):
+        y = y + out_rows[row[:, j]] * w[:, j]
+    return y
+
+
+def _moe_ffn(x, router, w_gate, w_up, w_down, moe: MoEConfig,
+             rules: Rules = NO_RULES):
+    """Token-choice top-k MoE over x [T, D] -> (y [T, D], aux loss), the
+    port of the reference's ``_moe_ffn``.
+
+    Each kept assignment's token row goes to its (expert, group, slot) row
+    of the buffer [E, G x C, D] (one gather: every row has at most one
+    kept assignment; an empty row takes token 0, whose outputs there are
+    never read), the three expert products are batched over E (float32
+    accumulation, the compute dtype out), and ``_moe_combine`` sums each
+    token's weighted expert outputs. The aux loss is Switch's,
+    E * sum(frac_tokens * frac_probs) over the top-1 experts."""
+    t, d = x.shape
+    e, k = moe.n_experts, moe.top_k
+    r = moe_route(x, router, moe, rules)
+    rows = e * r.groups * r.capacity
+    row = _moe_rows(r)
+    # dropped assignments write their token to a spare last entry
+    src = torch.zeros(rows + 1, dtype=torch.long, device=x.device)
+    src[torch.where(r.keep, row, rows).flatten()] = torch.arange(
+        t, device=x.device).repeat_interleave(k)
+    buf = x[src[:rows]].view(e, -1, d)
+    hg = torch.bmm(buf, rules.w(w_gate, x.dtype))
+    hu = torch.bmm(buf, rules.w(w_up, x.dtype))
+    out_e = torch.bmm(F.silu(hg) * hu, rules.w(w_down, x.dtype))
+    del buf, hg, hu
+    y = _moe_combine(out_e.view(rows, d), row, r)
+    frac_t = F.one_hot(r.top_e[..., 0].reshape(-1), e).float().mean(0)
+    frac_p = r.probs.mean(dim=(0, 1))
+    return y, e * (frac_t * frac_p).sum()
+
+
 # --------------------------------------------------------------------------
 # forward passes
 # --------------------------------------------------------------------------
@@ -259,7 +397,7 @@ def _layer(cfg: TransformerConfig, rules: Rules, x, lp, positions,
            layer_cache=None, cache_len: int = 0):
     """One block. x: [B, S, D]; ``layer_cache`` (k, v) or, with
     ``kv_quant``, (k, v, k_scale, v_scale) of this layer, written in
-    place. Returns x."""
+    place. Returns (x, the MoE aux loss or None)."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.compute_dtype
@@ -288,10 +426,14 @@ def _layer(cfg: TransformerConfig, rules: Rules, x, lp, positions,
         q_offset = cache_len
     o = attention(q, k, v, cfg.causal, q_offset)
     x = x + o.reshape(b, s, h * dh) @ rules.w(lp["wo"], cd)
-    xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    y = _dense_ffn(xn.reshape(b * s, -1), lp["w_gate"], lp["w_up"],
-                   lp["w_down"], rules)
-    return x + y.view(b, s, -1)
+    xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).reshape(b * s, -1)
+    aux = None
+    if cfg.moe is not None:
+        y, aux = _moe_ffn(xn, lp["router"], lp["w_gate"], lp["w_up"],
+                          lp["w_down"], cfg.moe, rules)
+    else:
+        y = _dense_ffn(xn, lp["w_gate"], lp["w_up"], lp["w_down"], rules)
+    return x + y.view(b, s, -1), aux
 
 
 CACHE_KEYS = ("k", "v")
@@ -301,11 +443,10 @@ CACHE_KEYS_Q = ("k", "v", "k_scale", "v_scale")
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             rules: Rules = NO_RULES, cache: dict | None = None,
             cache_len: int | None = None):
-    """tokens: [B, S]. Returns (hidden [B, S, D], aux_loss 0.0, cache or
-    None); a cache is written in place from position ``cache_len``."""
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported to repro_torch "
-                                  "yet")
+    """tokens: [B, S]. Returns (hidden [B, S, D], aux_loss, cache or
+    None): the aux loss is the sum of the MoE layers' (a float32 scalar,
+    0 for a dense model); a cache is written in place from position
+    ``cache_len``."""
     cd = cfg.compute_dtype
     b, s = tokens.shape
     tokens = tokens.long()
@@ -315,13 +456,16 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     if cfg.max_position:
         x = x + params["pos_embed"][positions].to(cd)
     keys = CACHE_KEYS_Q if cfg.kv_quant else CACHE_KEYS
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(cfg.n_layers):
         lp = {name: t[i] for name, t in params["layers"].items()}
         layer_cache = (None if cache is None
                        else tuple(cache[key][i] for key in keys))
-        x = _layer(cfg, rules, x, lp, positions, layer_cache, start)
+        x, a = _layer(cfg, rules, x, lp, positions, layer_cache, start)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, 0.0, cache
+    return x, aux, cache
 
 
 def _head(cfg: TransformerConfig, params: dict) -> torch.Tensor:

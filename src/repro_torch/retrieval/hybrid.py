@@ -35,9 +35,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.dense_guided import (DenseGuidedIndex, _check_full_f32,
-                                 build_dense_index)
-from ..core.index import BlockedImpactIndex, resolve_device
+from ..core.dense_guided import DenseGuidedIndex, build_dense_index
+from ..core.index import (BlockedImpactIndex, check_full_f32,
+                          resolve_device)
 from ..core.traversal import _as_tensor, _topk_stable
 from ..index.compressed import CompressedImpactIndex
 
@@ -128,7 +128,7 @@ def embed_queries(hybrid: HybridIndex, terms, weights_l,
     is bridged through ``q_proj`` weighted by the learned query weights
     (the side the rank score is dominated by)."""
     dev = hybrid.device
-    _check_full_f32(dev)
+    check_full_f32(dev, "dense retrieval")
     if dense is not None:
         q = _as_tensor(dense, torch.float32, dev)
         if q.ndim != 2 or q.shape[1] != hybrid.dim:
@@ -151,7 +151,7 @@ def rerank_candidates(hybrid: HybridIndex, q_rot, cand_ids,
     top ``min(k, depth)``. Sentinel candidates (-1) never resurface; short
     rows pad with (-1, -inf). Equal scores keep the first stage's order."""
     dev = hybrid.device
-    _check_full_f32(dev)
+    check_full_f32(dev, "dense retrieval")
     cand = _as_tensor(cand_ids, torch.int64, dev)
     q_rot = _as_tensor(q_rot, torch.float32, dev)
     k = min(int(k), int(cand.shape[1]))
@@ -170,7 +170,7 @@ def dense_topk(hybrid: HybridIndex, q_rot,
     """Batched exact dense top-k over the whole corpus, the zero pad rows
     masked (the RRF dense leg / the dense-only evaluation lane)."""
     dev = hybrid.device
-    _check_full_f32(dev)
+    check_full_f32(dev, "dense retrieval")
     k = min(int(k), hybrid.n_docs)
     emb = hybrid.dense.emb
     s = _as_tensor(q_rot, torch.float32, dev) @ emb.T      # [B, N_padded]

@@ -943,6 +943,8 @@ def _on(tree, device):
 
 
 @pytest.mark.parametrize("arch_id,shape", [("granite-3-2b", "decode_32k"),
+                                           ("granite-moe-1b-a400m",
+                                            "decode_32k"),
                                            ("dlrm-rm2", "serve_p99")])
 def test_smoke_serve_step_on_card_matches_cpu(cuda, arch_id, shape):
     """A smoke LM decode step (float32 logits within 2e-4) and a smoke
@@ -963,3 +965,92 @@ def test_smoke_serve_step_on_card_matches_cpu(cuda, arch_id, shape):
                          for o in (cpu, card))
     tol = 2e-4 if arch.family == "lm" else 1e-5
     torch.testing.assert_close(out_card.cpu(), out_cpu, rtol=tol, atol=tol)
+
+
+def _kept(r) -> set:
+    g, tl, k = r.top_e.shape
+    grp = torch.arange(g).view(g, 1, 1).expand(g, tl, k)
+    tok = torch.arange(tl).view(1, tl, 1).expand(g, tl, k)
+    keep = r.keep.cpu()
+    return set(zip(grp[keep].tolist(), tok[keep].tolist(),
+                   r.top_e.cpu()[keep].tolist(), r.slot.cpu()[keep].tolist()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,dp,cf", [(512, 1, 1.25), (512, 4, 1.25),
+                                     (512, 2, 16.0), (4, 1, 1.25)])
+def test_moe_layer_on_card_matches_cpu(cuda, t, dp, cf, dtype):
+    """The MoE layer on the card against the same inputs on the CPU:
+    dispatch identical (no token's k-th and (k+1)-th logits within 1e-4
+    here), float32 outputs within 1e-5, bfloat16 within 2^-6 max |cpu|
+    (the expert products round to bfloat16 after sums in other orders),
+    the aux loss within 1e-6; no kernel of the port runs."""
+    from repro_torch.models import transformer as T
+    rng = np.random.default_rng(t + dp)
+    e, k, d, f = 16, 4, 64, 96
+    x = torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32))
+    ws = [torch.from_numpy((rng.standard_normal(s) * 0.2).astype(np.float32))
+          for s in ((d, e), (e, d, f), (e, d, f), (e, f, d))]
+    moe, rules = T.MoEConfig(e, k, f, cf), T.Rules(dp_size=dp)
+    cpu_r = T.moe_route(x.to(dtype), ws[0], moe, rules)
+    top = torch.sort(cpu_r.logits, dim=-1, descending=True).values
+    assert float((top[..., k - 1] - top[..., k]).min()) > 1e-4
+    card_r = T.moe_route(x.to(dtype).to(cuda), ws[0].to(cuda), moe, rules)
+    assert _kept(card_r) == _kept(cpu_r)
+    fa.reset_launches()
+    gs.reset_launches()
+    y_card, aux_card = T._moe_ffn(x.to(dtype).to(cuda),
+                                  *(w.to(cuda) for w in ws), moe, rules)
+    assert fa.launches == 0 and sum(_launches().values()) == 0
+    y_cpu, aux_cpu = T._moe_ffn(x.to(dtype), *ws, moe, rules)
+    got, ref = y_card.cpu().float(), y_cpu.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    else:
+        assert (got - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+    assert abs(float(aux_card) - float(aux_cpu)) <= 1e-6
+
+
+def test_moe_router_refuses_tf32_on_card(cuda):
+    from repro_torch.models import transformer as T
+    x = torch.randn(8, 16, device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            T.moe_route(x, torch.randn(16, 4, device=cuda),
+                        T.MoEConfig(4, 2, 8))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_launcher_kernel_engine_on_card(cuda, capsys, monkeypatch):
+    """``repro_torch.launch.serve.main`` with ``--engine kernel`` on the
+    card: every search launches the tile kernel (K2) and no other; the
+    request counts equal the same run on the CPU, and so do the served ids
+    (scores within rtol 1e-6), request by request."""
+    from repro_torch.launch import serve
+    args = ["--docs", "4096", "--requests", "48", "--engine", "kernel",
+            "--cache", "16", "--k-mix", "10", "100"]
+    handles, submit = [], AsyncRetrievalScheduler.submit
+
+    def recording(self, *a, **kw):
+        handles.append(submit(self, *a, **kw))
+        return handles[-1]
+    monkeypatch.setattr(AsyncRetrievalScheduler, "submit", recording)
+    gs.reset_launches()
+    card = serve.main(args)
+    counts = _launches()
+    assert counts["guided_score_tile"] > 0
+    assert sum(counts.values()) == counts["guided_score_tile"], counts
+    served = [h.result() for h in handles]
+    handles.clear()
+    cpu = serve.main(args + ["--device", "cpu"])
+    for key in ("n", "completed", "requests_by_route", "failed"):
+        assert card[key] == cpu[key], key
+    assert card["n"] == 48 and card["failed"] == 0
+    assert len(served) == len(handles) == 48
+    for got, h in zip(served, handles):
+        want = h.result()
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=1e-6)
+    assert "# serving engine: kernel" in capsys.readouterr().out

@@ -290,8 +290,9 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     scheduler and serves a stream through a 2-executor pool
     (``repro_torch.serve``), builds a hybrid index over a graded corpus
     and searches it through the ``dense``, ``cascade`` and ``rrf`` engines
-    and scores a ranking through ``repro_torch.eval``, and runs a smoke LM
-    decode step and a smoke DLRM serve step."""
+    and scores a ranking through ``repro_torch.eval``, runs a smoke LM
+    decode step (dense and MoE) and a smoke DLRM serve step, and serves a
+    stream through the launcher (``repro_torch.launch.serve.main``)."""
     script = textwrap.dedent("""
         import sys
 
@@ -433,6 +434,7 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
         from repro_torch.configs import get_arch
         from repro_torch.launch import steps
         for arch_id, shape in (("granite-3-2b", "decode_32k"),
+                               ("granite-moe-1b-a400m", "decode_32k"),
                                ("dlrm-rm2", "serve_p99")):
             arch = get_arch(arch_id)
             cfg = arch.smoke()
@@ -442,6 +444,11 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
                                                           *batch.values())
             out = out[0] if isinstance(out, tuple) else out
             assert out.isfinite().all()
+
+        from repro_torch.launch import serve as launcher
+        stats = launcher.main(["--docs", "1024", "--requests", "8",
+                               "--engine", "kernel", "--device", "cpu"])
+        assert stats["n"] == 8 and stats["completed"] == 8
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not leaked, leaked
