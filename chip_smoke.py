@@ -121,6 +121,33 @@ Phases, one JSON line each:
             forward where their experts agree; dropped shares, bytes, a
             profile of each, the MoE layer's time split (routing, expert
             products, dispatch and combine) and K6 at the MoE shapes
+  train_lm  granite-3-2b at full width trained on the card (float32
+            master weights and AdamW moments, bf16 compute, remat,
+            attn_chunk 1024): 3 ``make_train_step`` steps on 1 x 4096
+            tokens of ``lm_batch``: step ms, tokens/s, peak bytes, the
+            losses (finite, changing), a profiled step; no K5/K6 launch
+            (the train path differentiates through ``scores_attention``);
+            layer 0's forward and backward on 1 x 512 of the inputs
+            against the port's CPU path (every gradient leaf within 2% of
+            its max |cpu|)
+  train_cli ``repro_torch.launch.train.main`` in-process, each of the 9
+            ported archs at its smoke config for 10 steps on the card and
+            on the CPU from the same initial state (the card's, as the CPU
+            run's step-0 checkpoint): each step's loss within 1e-3
+            relative (MoE: before the first routing flip, counted); logs
+            and checkpoints written; no K5/K6 launch
+  sparse_encoder  ``repro_torch.launch.train_sparse_encoder`` at
+            ``--full`` (12 layers, d 768, vocab 30522, float32): in a
+            child process with deterministic algorithms, a run that fails
+            at step 30 and resumes from its step-25 checkpoint against an
+            uninterrupted one (every state leaf bit-equal); ``main``
+            in-process (50 steps, encoding through K6 "f32", the merged
+            index, MaxScore-org and 2GTI-Fast through the ``sequential``
+            engine: MRR@10, R@10, MRT, P99); one encode call's K6 against
+            its plain version; the same searches through the ``kernel``
+            engine at ``chunked_fused`` (K1) and ``chunked`` (K2): ids
+            equal to the CPU's and, where exact, the sequential engine's;
+            K1 and K2 bit-equal to plain on sampled calls
   launcher  ``repro_torch.launch.serve.main`` in-process at 131,072 docs:
             the kernel engine under table8 routing with k 10/100, a
             256-entry cache, retries, tracing and a metrics server whose
@@ -145,9 +172,10 @@ Phases, one JSON line each:
             boundary)
 
 Then the six kernels' summary line (flash_attention once, with its routes
-mma, split and f32, the MoE LMs' calls included; K1 and K3 also with
-their serve_sched and hybrid launches, K2 and K4 with their sharded
-launches, K2 with the launcher's), the
+mma, split and f32, the MoE LMs' and the encoder's calls included; K1
+and K3 also with their serve_sched and hybrid launches, K2 and K4 with
+their sharded launches, K2 with the launcher's, K1 and K2 with the
+sparse encoder's), the
 nvidia-smi line and, last, the one-line verdict.
 Any failed check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
@@ -2122,12 +2150,13 @@ def measure_fa(args, kwargs, per_sequence_plain: bool) -> dict:
     # key tile, on these inputs
     keep = without_last_tile(q.shape[2], k.shape[2], causal, off, q.device)
     rejected = {}
-    for name, wrong in (("zeroed", lambda: torch.zeros_like(ref)),
-                        ("without_last_key_tile", lambda: by_sequence(
-                            functools.partial(attention_kept, keep=keep,
-                                              sm_scale=kwargs.get(
-                                                  "sm_scale")),
-                            q, k, v, split))):
+    wrongs = [("zeroed", lambda: torch.zeros_like(ref))]
+    if not bool(keep.all()):        # rows of one key tile keep all of it
+        wrongs.append(("without_last_key_tile", lambda: by_sequence(
+            functools.partial(attention_kept, keep=keep,
+                              sm_scale=kwargs.get("sm_scale")),
+            q, k, v, split)))
+    for name, wrong in wrongs:
         rejected[name] = outside_share(wrong(), ref, tol)
         require(rejected[name] > 0, f"flash_attention main: a {name} "
                                     f"output passes the tolerance")
@@ -2843,6 +2872,384 @@ def phase_lm_moe(seed: int, dev) -> dict:
 # launcher: repro_torch.launch.serve in-process, K2
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_CHECK_TOKENS = 4096, 3, 512
+CLI_STEPS, CLI_RTOL = 10, 1e-3
+ENC_STEPS, ENC_CKPT_EVERY, ENC_FAIL_AT = 50, 25, 30
+
+
+def phase_train_lm(seed: int, dev, smi: str) -> None:
+    """granite-3-2b at full width trained on the card: float32 master
+    weights and moments, bf16 compute, remat and attn_chunk 1024 (its
+    config), ``make_train_step`` (AdamW, warmup 1) for TRAIN_STEPS steps on
+    one ``lm_batch`` of 1 x 4096 tokens: step ms, tokens/s, peak bytes,
+    the losses (finite, changing), a profiled step; K5 and K6 not
+    launched (the train path differentiates through ``scores_attention``);
+    layer 0's forward and backward on 1 x 512 of the inputs against the
+    port's CPU path (every gradient leaf within 2% of its max |cpu|)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    arch = get_arch(LM_ARCH)
+    cfg = arch.config()
+    require(cfg.remat and cfg.attn_chunk == 1024,
+            f"{LM_ARCH}: remat {cfg.remat}, attn_chunk {cfg.attn_chunk}")
+    torch.cuda.reset_peak_memory_stats()
+    params = steps.init_fn(arch, "train_4k", cfg, device=dev)(seed)
+    state = {"params": params, "opt": adamw_init(params)}
+    param_bytes, state_bytes = tree_bytes(params), tree_bytes(state)
+    batch = lm_batch(0, batch=1, seq=TRAIN_SEQ, vocab=cfg.vocab, seed=seed,
+                     device=dev)
+    # layer 0's inputs and weights, kept for the check below
+    n = TRAIN_CHECK_TOKENS
+    layer0 = {k: v[0].detach().cpu() for k, v in params["layers"].items()}
+    x0 = params["embed"][batch["tokens"][:, :n].long()].to(
+        cfg.compute_dtype).cpu()
+    step = steps.make_train_step(arch, "train_4k", cfg, T.NO_RULES,
+                                 AdamWConfig(warmup_steps=1,
+                                             total_steps=TRAIN_STEPS))
+    reset_model_launches()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        (state, metrics), ms = synced_ms(lambda: step(state, batch))
+        losses.append(float(metrics["loss"]))
+        step_ms.append(ms)
+    launches = model_launches()
+    peak = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(v) for v in losses)
+            and all(a != b for a, b in zip(losses, losses[1:])),
+            f"train_lm: losses {losses} not finite and changing")
+    require(launches["flash_attention"] == 0
+            and launches["embedding_bag"] == 0,
+            f"train_lm: the train step launched {launches}")
+    prof = profile_call(lambda: step(state, batch), warm=False)
+    ms = statistics.median(step_ms[1:])
+    del state, params, metrics, step
+    torch.cuda.empty_cache()
+    check = train_layer0_vs_cpu(cfg, layer0, x0, dev)
+    emit("train_lm", arch=LM_ARCH, source=arch.source,
+         config={"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                 "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                 "compute_dtype": str(cfg.compute_dtype),
+                 "param_dtype": str(cfg.param_dtype), "remat": cfg.remat,
+                 "remat_policy": cfg.remat_policy,
+                 "attn_chunk": cfg.attn_chunk},
+         params=cfg.param_count(), batch=[1, TRAIN_SEQ],
+         optimizer="AdamW (lr 3e-4, warmup 1, cosine over 3 steps)",
+         step_ms=step_ms, median_step_ms=ms,
+         tokens_per_s=TRAIN_SEQ / ms * 1e3, losses=losses,
+         device_bytes={"params": param_bytes, "moments": state_bytes
+                       - param_bytes, "params_grads_moments": state_bytes
+                       + param_bytes, "peak": peak},
+         launches=launches, profile=prof, layer0_vs_cpu=check,
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi,
+         reduced=[f"train_4k: batch 256 x 4096 -> 1 x {TRAIN_SEQ} (one "
+                  f"card's memory)"])
+
+
+def train_layer0_vs_cpu(cfg, layer0, x0, dev) -> dict:
+    """Layer 0's forward and backward (``scores_attention``, a fixed
+    random cotangent) on the card and on the CPU, on the same inputs: the
+    output and every gradient leaf within BF16_MODEL_RTOL of its max
+    |cpu|."""
+    from repro_torch import tree
+    from repro_torch.models import transformer as T
+    n = x0.shape[1]
+    cot = torch.randn(x0.shape, generator=torch.Generator().manual_seed(1))
+
+    def run(device):
+        inputs = {"x": x0.to(device),
+                  **{k: v.to(device) for k, v in layer0.items()}}
+        pos = torch.arange(n, device=device)[None]
+
+        def loss_fn(p, c):
+            lp = {k: v for k, v in p.items() if k != "x"}
+            y, _ = T._layer(cfg, T.NO_RULES, p["x"], lp, pos,
+                            attn=T.scores_attention)
+            out.append(y.detach().cpu())
+            return (y.float() * c).sum()
+        out = []
+        _, grads = tree.value_and_grad(loss_fn, inputs, cot.to(device))
+        return out[0], {k: g.cpu() for k, g in grads.items()}
+
+    y_card, g_card = run(dev)
+    t0 = time.perf_counter()
+    y_cpu, g_cpu = run(torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for name, got, ref in [("y", y_card, y_cpu)] + [
+            (k, g_card[k], g_cpu[k]) for k in sorted(g_cpu)]:
+        ratio = float((got.float() - ref.float()).abs().max()
+                      / ref.float().abs().max())
+        require(ratio <= BF16_MODEL_RTOL,
+                f"train_lm layer 0 {name}: max|d| / max|cpu| {ratio} > "
+                f"{BF16_MODEL_RTOL}")
+        worst[name] = ratio
+    return {"tokens": n, "max_abs_diff_over_max_abs_cpu": worst,
+            "cpu_seconds": cpu_s,
+            "tolerance": f"max|d| <= {BF16_MODEL_RTOL} max|cpu| per leaf"}
+
+
+def phase_train_cli(smi: str, dev) -> None:
+    """``repro_torch.launch.train.main`` in-process, each ported arch at
+    its smoke config for CLI_STEPS steps on the card and, from the same
+    initial state (the card's, saved as the CPU run's step-0 checkpoint),
+    on the CPU: every step's loss within a relative CLI_RTOL (the MoE
+    archs: on the steps before the first routing flip between the two
+    runs; the gap and the flips are reported); metrics.jsonl and the
+    checkpoints written; K5 and K6 not launched."""
+    import io
+    import tempfile
+    from repro_torch.configs import ARCH_IDS, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import adamw_init
+
+    t_phase = time.perf_counter()
+    rows = {}
+    for arch_id in ARCH_IDS:
+        arch = get_arch(arch_id)
+        shape = "train_4k" if arch.family == "lm" else "train_batch"
+        cfg = arch.smoke()
+        with tempfile.TemporaryDirectory() as d:
+            init = steps.init_fn(arch, shape, cfg, device=dev)(0)
+            cpu_init = tree_to(init, "cpu")
+            checkpoint.save(f"{d}/cpu/ckpt", 0, {
+                "params": cpu_init, "opt": adamw_init(cpu_init)})
+            del init
+            runs, routes = {}, {}
+            for side, device in (("card", "cuda"), ("cpu", "cpu")):
+                seen, real = [], T.moe_route
+
+                def spy(*a, **kw):
+                    r = real(*a, **kw)
+                    seen.append(r.top_e.cpu())
+                    return r
+                T.moe_route = spy
+                reset_model_launches()
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(out):
+                        res = train_cli.main([
+                            "--arch", arch_id, "--steps", str(CLI_STEPS),
+                            "--out", f"{d}/{side}", "--device", device])
+                finally:
+                    T.moe_route = real
+                launched = model_launches()
+                runs[side] = {"losses": res["losses"],
+                              "seconds": time.perf_counter() - t0,
+                              "printed": out.getvalue().strip()}
+                routes[side] = seen
+                if side == "card":
+                    require(launched["flash_attention"] == 0
+                            and launched["embedding_bag"] == 0,
+                            f"train_cli {arch_id}: launched {launched}")
+                logged = (Path(d) / side / "metrics.jsonl").read_text()
+                require(len(logged.splitlines()) >= 2 and (
+                    Path(d) / side / "ckpt" / f"step_{CLI_STEPS:08d}"
+                ).is_dir(), f"train_cli {arch_id} {side}: no log or "
+                            f"checkpoint")
+        card, cpu = (np.array(runs[s]["losses"]) for s in ("card", "cpu"))
+        require(len(card) == len(cpu) == CLI_STEPS,
+                f"train_cli {arch_id}: {len(card)} / {len(cpu)} steps")
+        gap = np.abs(card - cpu) / np.abs(cpu)
+        calls = routes["cpu"]
+        flips = [i for i, (a, b) in enumerate(zip(routes["card"], calls))
+                 if not torch.equal(a, b)]
+        per_step = len(calls) // CLI_STEPS if calls else 1
+        first = flips[0] // per_step if flips else CLI_STEPS
+        require(bool((gap[:first] <= CLI_RTOL).all()),
+                f"train_cli {arch_id}: loss gaps {gap.tolist()} beyond "
+                f"{CLI_RTOL} before the first routing flip (step {first})")
+        rows[arch_id] = {"card_losses": card.tolist(),
+                         "max_rel_gap": float(gap.max()),
+                         "max_rel_gap_before_flip": float(
+                             gap[:first].max()) if first else None,
+                         "routing_calls": len(calls),
+                         "routing_flips": len(flips),
+                         "first_flip_step": first if flips else None,
+                         "card_seconds": runs["card"]["seconds"],
+                         "cpu_seconds": runs["cpu"]["seconds"],
+                         "printed": runs["card"]["printed"]}
+    emit("train_cli", steps=CLI_STEPS, archs=rows,
+         tolerance=f"every step's loss within {CLI_RTOL} relative of the "
+                   f"CPU's from the same initial state (MoE: before the "
+                   f"first routing flip)",
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
+# The deterministic crash-and-resume run of the sparse encoder, in a child
+# process: deterministic cuBLAS needs its workspace setting before CUDA
+# starts, and this process keeps its own settings.
+ENC_RESUME_SCRIPT = """
+import json, sys, tempfile
+import torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch import tree
+from repro_torch.launch import train_sparse_encoder as TSE
+from repro_torch.train.trainer import SimulatedFailure
+steps, every, fail = (int(a) for a in sys.argv[1:4])
+cfg = TSE.encoder_config(True)
+with tempfile.TemporaryDirectory() as d:
+    def run(out, fail_at=None):
+        return TSE.make_trainer(cfg, steps, 8, out, "cuda", every,
+                                fail_at).run()
+    try:
+        run(d + "/a", fail)
+        raise AssertionError("no injected failure")
+    except SimulatedFailure:
+        pass
+    resumed = run(d + "/a")
+    clean = run(d + "/b")
+    same = [torch.equal(a, b) for a, b in zip(
+        tree.leaves(resumed["state"]), tree.leaves(clean["state"]))]
+    print("RESULT:" + json.dumps({
+        "resumed_steps": len(resumed["losses"]),
+        "leaves": len(same), "leaves_bit_equal": sum(same),
+        "losses_equal": resumed["losses"] == clean["losses"][-len(
+            resumed["losses"]):],
+        "final_loss": clean["losses"][-1]}))
+"""
+
+
+def phase_sparse_encoder(smi: str, dev) -> dict:
+    """``repro_torch.launch.train_sparse_encoder`` at ``--full`` (12
+    layers, d 768, vocab 30522, float32): first, in a deterministic child
+    process, a run that fails at step ENC_FAIL_AT and resumes from its
+    step-25 checkpoint against an uninterrupted run (every state leaf
+    bit-equal); then ``main`` in-process (50 steps, encoding through K6
+    "f32", the merged index on the card, the example's ``sequential``
+    searches); one encode call's K6 held against its plain version; the
+    same queries through the ``kernel`` engine at ``chunked_fused`` (K1)
+    and ``chunked`` (K2): ids equal to the same search on the CPU and,
+    where the traversal is exact (rank-safe, or ``chunked``), to the
+    sequential engine's; K1 and K2 bit-equal to plain on sampled calls. Returns K1, K2 and K6 f32
+    launches and K6's measurement."""
+    import io
+    import os
+    import tempfile
+    from repro_torch.core import traversal
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import guided_score as gs
+    from repro_torch.launch import train_sparse_encoder as TSE
+    from repro_torch.retrieval import Retriever
+
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ENC_RESUME_SCRIPT, str(ENC_STEPS),
+         str(ENC_CKPT_EVERY), str(ENC_FAIL_AT)], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"sparse_encoder resume run failed: "
+                                  f"{proc.stderr[-2000:]}")
+    resume = json.loads([ln for ln in proc.stdout.splitlines()
+                         if ln.startswith("RESULT:")][-1][len("RESULT:"):])
+    resume["seconds"] = time.perf_counter() - t0
+    require(resume["leaves_bit_equal"] == resume["leaves"]
+            and resume["losses_equal"]
+            and resume["resumed_steps"] == ENC_STEPS - ENC_CKPT_EVERY,
+            f"sparse_encoder: resumed run differs from the clean one: "
+            f"{resume}")
+
+    reset_model_launches()
+    gs.reset_launches()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, \
+            contextlib.redirect_stdout(out), \
+            first_call(fa, "flash_attention") as seen:
+        t0 = time.perf_counter()
+        res = TSE.main(["--full", "--steps", str(ENC_STEPS), "--batch", "8",
+                        "--out", d, "--device", "cuda"])
+        main_s = time.perf_counter() - t0
+    launches = model_launches()
+    require(launches["flash_attention_routes"] == fa_routes(
+        f32=launches["flash_attention"]) and launches["flash_attention"] > 0
+            and launches["embedding_bag"] == 0,
+            f"sparse_encoder: launches {launches}, expected K6 on f32 only")
+    require(sum(fn.launches for fn in gs.KERNELS) == 0,
+            "sparse_encoder: the sequential engine launched a tile kernel")
+    losses = res["losses"]
+    require(len(losses) == ENC_STEPS and all(map(math.isfinite, losses)),
+            f"sparse_encoder: losses {losses[:3]}...")
+    k6 = measure_fa(*seen[0], per_sequence_plain=False)
+
+    q = dict(zip(("terms", "weights_b", "weights_l"), res["queries"]), k=10)
+    searches, k_launches, sampled = {}, {}, {}
+    for name, p in TSE.PRESETS:
+        seq_ids = res["runs"][name]["response"].ids
+        for kernel, trav in (("guided_score_chunk", "chunked_fused"),
+                             ("guided_score_tile", "chunked")):
+            gs.reset_launches()
+            with sampled_calls(traversal, kernel, limit=6) as calls:
+                resp = Retriever.open(res["index"], p, engine="kernel",
+                                      traversal=trav, device=dev).search(**q)
+            ran = {fn.__name__: fn.launches for fn in gs.KERNELS}
+            require(ran[kernel] > 0 and sum(ran.values()) == ran[kernel],
+                    f"sparse_encoder {name} {trav}: launches {ran}")
+            cpu = Retriever.open(res["index"], p, engine="kernel",
+                                 traversal=trav, device="cpu").search(**q)
+            require(np.array_equal(resp.ids, cpu.ids),
+                    f"sparse_encoder {name}: {trav} ids differ from the "
+                    f"same search on the CPU")
+            off_seq = int((resp.ids != seq_ids).any(-1).sum())
+            # rank-safe: every traversal returns the sequential engine's
+            # ids; guided: chunked_fused prunes from chunk-start
+            # thresholds and may keep other docs (so does the reference)
+            rank_safe = p.alpha == p.beta == p.gamma
+            require(off_seq == 0 or (not rank_safe
+                                     and trav == "chunked_fused"),
+                    f"sparse_encoder {name}: {trav} ids differ from the "
+                    f"sequential engine's on {off_seq} queries")
+            k_launches[kernel] = k_launches.get(kernel, 0) + ran[kernel]
+            sampled.setdefault(kernel, []).extend(calls)
+            searches[f"{name} {trav}"] = {
+                "launches": ran[kernel], "queries_off_sequential": off_seq}
+    plain = {"guided_score_chunk": gs.guided_score_chunk_plain,
+             "guided_score_tile": gs.guided_score_tile_plain}
+    vs_plain = {kernel: {"calls_compared": len(calls), "max_abs_err": max(
+        compare(f"sparse_encoder {kernel} call {i}",
+                getattr(gs, kernel)(*a, **kw), plain[kernel](*a, **kw))
+        for i, (a, kw) in enumerate(calls))}
+        for kernel, calls in sampled.items()}
+    emit("sparse_encoder", config="encoder_config(full=True): 12 layers, "
+         "d 768, 12 heads, d_ff 3072, vocab 30522, float32",
+         params=TSE.encoder_config(True).param_count(),
+         training={"steps": ENC_STEPS, "batch": 8, "seq": TSE.SEQ,
+                   "losses_first_last": [losses[0], losses[-1]],
+                   "main_seconds": main_s},
+         resume=dict(resume, fail_at=ENC_FAIL_AT, ckpt_every=ENC_CKPT_EVERY,
+                     settings="CUBLAS_WORKSPACE_CONFIG=:4096:8, "
+                              "torch.use_deterministic_algorithms(True)"),
+         printed=out.getvalue().strip().splitlines(),
+         quality={name: {k: r[k] for k in ("mrr@10", "r@10", "mrt_ms",
+                                            "p99_ms")}
+                  for name, r in res["runs"].items()},
+         launches=launches, kernel_searches=searches,
+         k1_k2_vs_plain=vs_plain,
+         k6_encode_call={f: k6[f] for f in (
+             "route", "max_abs_err", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by", "shape", "wrong_outputs_rejected",
+             "max_err_over_three_pass_bound")},
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    return {"launches": {**k_launches,
+                         "flash_attention_f32": launches["flash_attention"]},
+            "k6": k6}
+
+
 LAUNCH_DOCS = 131072
 LAUNCH_RUNS = (
     ("kernel", ["--engine", "kernel", "--routing", "table8", "--k-mix", "10",
@@ -3395,6 +3802,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_lm_moe(args.seed, dev)
     torch.cuda.empty_cache()
+    phase_train_lm(args.seed, dev, smi)
+    torch.cuda.empty_cache()
+    phase_train_cli(smi, dev)
+    enc = phase_sparse_encoder(smi, dev)
+    torch.cuda.empty_cache()
     launcher_launches = phase_launcher(smi)
     rec = phase_recsys(args.seed, dev)
     sweep = phase_model_kernels(dev)
@@ -3405,7 +3817,8 @@ def main() -> int:
         "prefill_f32": lm["main"]["prefill_f32"],
         "decode_f32": lm["main"]["decode_f32"],
         **moe["main"],
-        "bert4rec": rec["main"]["bert4rec"]},
+        "bert4rec": rec["main"]["bert4rec"],
+        "encoder_f32": enc["k6"]},
                    "embedding_bag": {"two-tower-retrieval":
                                      rec["main"]["two-tower-retrieval"]}}
     emit("kernels_models", main=model_main, other=model_other, sweep=sweep,
@@ -3418,6 +3831,8 @@ def main() -> int:
             model_counts[name] += counts[name]
         for way, n in counts["flash_attention_routes"].items():
             route_counts[way] += n
+    model_counts["flash_attention"] += enc["launches"]["flash_attention_f32"]
+    route_counts["f32"] += enc["launches"]["flash_attention_f32"]
 
     src = "src/repro_torch/kernels/csrc/"
     where = {"guided_score_chunk": ("guided_score_tile.cu", 123),
@@ -3440,7 +3855,9 @@ def main() -> int:
          **({"hybrid_launches": hybrid_launches[name]}
             if name in hybrid_launches else {}),
          **({"launcher_launches": launcher_launches}
-            if name == "guided_score_tile" else {})}
+            if name == "guided_score_tile" else {}),
+         **({"sparse_encoder_launches": enc["launches"][name]}
+            if name in enc["launches"] else {})}
         for name, (cu, line) in where.items()]}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     for name, cu, line in (("flash_attention", "flash_attention_mma.cu", 29),
@@ -3470,7 +3887,8 @@ def main() -> int:
                          **{k: v for k, v in moe_main.items()
                             if k.startswith("decode")}},
                "f32": {"prefill_f32": lm["main"]["prefill_f32"],
-                       "decode_f32": lm["main"]["decode_f32"]}}
+                       "decode_f32": lm["main"]["decode_f32"],
+                       "encoder_f32": enc["k6"]}}
     summary["kernels"][-2]["routes"] = {
         way: {"source": src + fa.SOURCES[way], "launches": route_counts[way],
               "max_abs_err": max(

@@ -165,6 +165,20 @@ def error_string(code: int) -> str:
     return load().error_string(code).decode()
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a call of kernel ``name`` on these
+    inputs: the kernel has no backward, and its output (written through a
+    raw pointer) would carry no gradient, so a loss through it would lose
+    its inputs' gradients without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad; run it under torch.no_grad() (serving), or differentiate "
+            f"through the reference's ops, as the train path does "
+            f"(models.transformer.scores_attention, "
+            f"sparse_ops.gather_embedding_bag)")
+
+
 def launch(source: str, fn_name: str, device: torch.device, *args) -> None:
     """Call launcher ``fn_name`` of ``source``'s library with ``args`` (ints,
     floats and tensors, which pass as their data pointers) and the current

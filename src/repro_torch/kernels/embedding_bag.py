@@ -13,7 +13,9 @@ plain version alike (the TPU kernel assumes every index is in range).
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel (``csrc/embedding_bag.cu``) or raises.
-There is no fallback. The kernel is bit-equal to the plain version: both
+There is no fallback. The kernel has no backward: a CUDA call in grad mode
+on a table or weights that require grad raises (``build.refuse_grad``);
+training differentiates through ``sparse_ops.gather_embedding_bag``. The kernel is bit-equal to the plain version: both
 round each product and each sum to the table's dtype, in the same order.
 """
 from __future__ import annotations
@@ -91,6 +93,7 @@ def embedding_bag(table, indices, weights) -> torch.Tensor:
             raise ValueError(f"embedding_bag kernel: {name} must be "
                              f"contiguous")
     from . import build
+    build.refuse_grad("embedding_bag", tab, w)
     n_fields, vocab, d = tab.shape
     out = torch.empty(idx.shape[:2] + (d,), dtype=tab.dtype,
                       device=tab.device)

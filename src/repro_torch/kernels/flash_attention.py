@@ -11,7 +11,10 @@ cache length). The output has q's dtype; scores and softmax are computed
 in float32, and the weighted sum accumulates in float32.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version, a
-CUDA tensor launches a kernel or raises. There is no fallback. Three
+CUDA tensor launches a kernel or raises. There is no fallback. The kernels
+have no backward: a CUDA call in grad mode on inputs that require grad
+raises (``build.refuse_grad``); training differentiates through
+``models.transformer.scores_attention`` instead. Three
 routes, chosen by ``route(q, k)`` from shape and dtype alone:
 
 - "split" (``csrc/flash_attention_split.cu``): bfloat16 with at most 16
@@ -205,6 +208,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda(q, k, v)
+    from . import build
+    build.refuse_grad("flash_attention", q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     out = torch.empty_like(q)          # keeps q's layout (and alignment)

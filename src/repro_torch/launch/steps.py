@@ -1,12 +1,17 @@
-"""Step factory: (arch x shape) -> the serve step of a cell.
+"""Step factory: (arch x shape) -> the step of a cell.
 
-The port of ``repro.launch.steps``'s serving half. ``make_serve_step``
-returns, per family: for the LMs, dense and MoE, prefill (prompt -> last
-logits and a KV cache) and decode (one token against the cache); for each
-recsys model, its ``serve`` step (a batch of requests, or requests x a
-shortlist) and its ``retrieval`` step (one query against a candidate set,
-top-100). The train steps, ``state_specs`` and the GNN family (whose cells
-the reference only trains) are not ported yet.
+The port of ``repro.launch.steps``. Train steps: ``make_train_step`` maps
+a state {"params", "opt"} and a batch to (state, metrics), AdamW on the
+gradients of ``loss_fn``; the losses differentiate through plain torch
+attention and bags (``transformer.scores_attention``,
+``sparse_ops.gather_embedding_bag``), never through a kernel. Serve steps:
+``make_serve_step`` returns, per family: for the LMs, dense and MoE,
+prefill (prompt -> last logits and a KV cache) and decode (one token
+against the cache); for each recsys model, its ``serve`` step (a batch of
+requests, or requests x a shortlist) and its ``retrieval`` step (one
+query against a candidate set, top-100), through the kernels.
+``state_specs``, ``make_serve_step``'s ``mesh=`` / ``sharded_topk=`` and
+the GNN family are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from ..core.index import resolve_device
 from ..models import recsys as R
 from ..models import transformer as T
 from ..sparse_ops import embedding_bag
+from ..train.optimizer import AdamWConfig
+from ..train.trainer import train_step
 
 TOPK_SERVE = 100
 
@@ -54,6 +61,36 @@ def init_fn(arch: ArchSpec, shape: str, cfg, device="cuda"):
         raise TypeError(type(cfg))
     return lambda seed: init(cfg, torch.Generator(device=dev).manual_seed(
         int(seed)))
+
+
+def loss_fn(arch: ArchSpec, shape: str, cfg, rules: T.Rules = T.NO_RULES):
+    """``(params, batch) -> scalar loss`` of the arch's family."""
+    if arch.family == "lm":
+        return lambda p, b: T.lm_loss(cfg, p, b, rules)
+    if arch.family != "recsys":
+        raise NotImplementedError(f"the {arch.family} family is not ported "
+                                  f"to repro_torch yet")
+    if isinstance(cfg, R.DLRMConfig):
+        return lambda p, b: R.dlrm_loss(cfg, p, b, rules)
+    if isinstance(cfg, R.DINConfig):
+        return lambda p, b: R.din_loss(cfg, p, b, rules)
+    if isinstance(cfg, R.TwoTowerConfig):
+        return lambda p, b: R.two_tower_loss(cfg, p, b, rules)
+    if isinstance(cfg, R.Bert4RecConfig):
+        return lambda p, b: R.bert4rec_loss(cfg, p, b, rules)
+    raise TypeError(type(cfg))
+
+
+def make_train_step(arch: ArchSpec, shape: str, cfg,
+                    rules: T.Rules = T.NO_RULES,
+                    opt_cfg: AdamWConfig | None = None):
+    """``step(state, batch) -> (state, metrics)``: the gradients of
+    ``loss_fn`` (autograd), then ``adamw_update``; metrics ``loss``,
+    ``grad_norm`` and ``lr``. The state's tensors are updated in place.
+    (The reference's ``grad_shardings=`` is not ported.)"""
+    opt_cfg = opt_cfg or AdamWConfig()
+    lfn = loss_fn(arch, shape, cfg, rules)
+    return lambda state, batch: train_step(lfn, opt_cfg, state, batch)
 
 
 # --------------------------------------------------------------------------
@@ -159,9 +196,10 @@ def make_serve_step(arch: ArchSpec, shape: str, cfg,
 
 def smoke_batch(arch: ArchSpec, shape: str, cfg, seed: int = 0,
                 device="cuda") -> dict:
-    """Small inputs of a serve cell, drawn by numpy from ``seed`` in the
+    """Small inputs of a cell, drawn by numpy from ``seed`` in the
     reference's order (so both packages get the same integers), as int32
-    and float32 tensors on ``device``."""
+    and float32 tensors on ``device``. A train cell's are under
+    ``"batch"``."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
 
@@ -173,34 +211,50 @@ def smoke_batch(arch: ArchSpec, shape: str, cfg, seed: int = 0,
         kind = LM_SHAPE_DEFS[shape]["kind"]
         b, s = 2, 32
         toks = rng.integers(1, cfg.vocab, (b, s + 1))
+        if kind == "train":
+            return {"batch": {"tokens": t(toks[:, :-1]),
+                              "targets": t(toks[:, 1:])}}
         if kind == "prefill":
             return {"tokens": t(toks[:, :-1])}
-        if kind != "decode":
-            raise ValueError(f"no serve batch for LM shape {shape}")
         cache = T.init_cache(cfg, b, s, dev)
         return {"token": t(toks[:, :1]), "cache": cache, "cache_len": s - 1}
+    if arch.family != "recsys":
+        raise NotImplementedError(f"the {arch.family} family is not ported "
+                                  f"to repro_torch yet")
     kind = RECSYS_SHAPE_DEFS[shape]["kind"]
-    if kind not in ("serve", "retrieval"):
-        raise ValueError(f"no serve batch for recsys shape {shape}")
     b = 8
     if isinstance(cfg, R.DLRMConfig):
         dense = rng.standard_normal((b, cfg.n_dense))
         sparse = rng.integers(0, cfg.vocab_per_field,
                               (b, cfg.n_sparse, cfg.multi_hot))
+        feats = {"dense": t(dense, f32), "sparse": t(sparse)}
+        if kind == "train":
+            return {"batch": {**feats, "label": t(rng.integers(0, 2, b))}}
         if kind == "serve":
-            return {"batch": {"dense": t(dense, f32), "sparse": t(sparse)}}
+            return {"batch": feats}
         return {"user": {"dense": t(dense[:1], f32),
                          "sparse": t(sparse[:1, :cfg.n_sparse - 1])},
                 "cand_ids": t(rng.integers(0, cfg.vocab_per_field, 64))}
     if isinstance(cfg, R.DINConfig):
         hist = rng.integers(0, cfg.n_items, (b, cfg.seq_len))
         target = rng.integers(0, cfg.n_items, b)
+        base = {"hist": t(hist), "target": t(target)}
+        if kind == "train":
+            return {"batch": {**base, "label": t(rng.integers(0, 2, b))}}
         if kind == "serve":
-            return {"batch": {"hist": t(hist), "target": t(target)}}
+            return {"batch": base}
         return {"hist": t(hist[:1]),
                 "cand_ids": t(rng.integers(0, cfg.n_items, 64))}
     if isinstance(cfg, R.TwoTowerConfig):
         uf = rng.integers(1, cfg.n_user_feats, (b, cfg.user_bag))
+        if kind == "train":
+            return {"batch": {
+                "user_feats": t(uf),
+                "pos_item": t(rng.integers(0, cfg.n_items, b)),
+                "neg_items": t(rng.integers(0, cfg.n_items,
+                                            cfg.n_negatives)),
+                "neg_logq": torch.zeros(cfg.n_negatives, dtype=f32,
+                                        device=dev)}}
         if kind == "serve":
             return {"user_feats": t(uf),
                     "shortlist": t(rng.integers(0, cfg.n_items, 32))}
@@ -209,6 +263,12 @@ def smoke_batch(arch: ArchSpec, shape: str, cfg, seed: int = 0,
                               f32)}
     if isinstance(cfg, R.Bert4RecConfig):
         items = rng.integers(0, cfg.n_items, (b, cfg.seq_len))
+        if kind == "train":
+            return {"batch": {
+                "items": t(items),
+                "targets": t(rng.integers(0, cfg.n_items, (b, cfg.seq_len))),
+                "mask": t(rng.integers(0, 2, (b, cfg.seq_len))),
+                "neg_items": t(rng.integers(0, cfg.n_items, 64))}}
         cand = rng.integers(0, cfg.n_items, 32)
         if kind == "serve":
             return {"items": t(items), "cand_ids": t(cand)}

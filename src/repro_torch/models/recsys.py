@@ -1,13 +1,15 @@
 """RecSys architectures: DLRM, DIN, two-tower retrieval, BERT4Rec.
 
-The port of ``repro.models.recsys``'s forward and scoring paths, over
-parameter dicts in the reference's layout (MLP layers as lists of
-``{"w": [in, out], "b": [out]}``, applied as ``x @ w + b``). Embedding
-bags go through ``sparse_ops.embedding_bag`` (the hand-written kernel on
-CUDA tensors): DLRM looks up all its fields in one call over the stacked
-``[F, V, D]`` tables. BERT4Rec runs the transformer bidirectionally, so its
-attention is the flash-attention kernel with ``causal=False``. The training
-losses are not ported yet.
+The port of ``repro.models.recsys``, over parameter dicts in the
+reference's layout (MLP layers as lists of ``{"w": [in, out], "b":
+[out]}``, applied as ``x @ w + b``). Embedding bags are an argument
+(``bag=``) of the forwards that take them: serving takes the default,
+``sparse_ops.embedding_bag`` (the hand-written kernel on CUDA tensors;
+DLRM looks up all its fields in one call over the stacked ``[F, V, D]``
+tables); the training losses pass ``sparse_ops.gather_embedding_bag``,
+which autograd differentiates (the kernel has no backward). BERT4Rec runs
+the transformer bidirectionally: serving through the flash-attention
+kernel with ``causal=False``, its loss through ``scores_attention``.
 """
 from __future__ import annotations
 
@@ -16,9 +18,9 @@ from typing import Any
 
 import torch
 
-from ..sparse_ops import embedding_bag
+from ..sparse_ops import embedding_bag, gather_embedding_bag
 from .transformer import (NO_RULES, Rules, TransformerConfig, forward,
-                          init_params as init_tf_params)
+                          init_params as init_tf_params, scores_attention)
 
 
 def _mlp_init(gen, dims, pt):
@@ -98,18 +100,35 @@ def dot_interaction(feats):
 
 
 def dlrm_forward(cfg: DLRMConfig, params: dict, batch: dict,
-                 rules: Rules = NO_RULES):
+                 rules: Rules = NO_RULES, *, bag=None):
     """batch: dense [B, 13] f32, sparse [B, 26, multi_hot] int -> [B]. The
-    26 fields' bags are one embedding-bag call over the stacked tables."""
+    26 fields' bags are one ``bag`` call over the stacked tables (None:
+    ``embedding_bag``, the kernel)."""
+    bag = bag or embedding_bag
     cd = cfg.compute_dtype
     bot = _mlp(params["bot"], batch["dense"].to(cd), final_act=True)  # [B, D]
     sparse = batch["sparse"]
-    embs = embedding_bag(params["tables"].to(cd), sparse,
-                         torch.ones(sparse.shape, dtype=cd,
-                                    device=sparse.device))      # [B, 26, D]
+    embs = bag(params["tables"].to(cd), sparse,
+               torch.ones(sparse.shape, dtype=cd,
+                          device=sparse.device))                # [B, 26, D]
     feats = torch.cat([bot[:, None, :], embs], dim=1)            # [B, 27, D]
     top_in = torch.cat([bot, dot_interaction(feats)], dim=-1)
     return _mlp(params["top"], top_in)[:, 0]
+
+
+def _bce_with_logits(logit, label):
+    """The reference's mean binary cross-entropy of logits: max(z, 0) -
+    z y + log1p(exp(-|z|))."""
+    y = label.float()
+    return (torch.clamp_min(logit, 0) - logit * y
+            + torch.log1p(torch.exp(-logit.abs()))).mean()
+
+
+def dlrm_loss(cfg: DLRMConfig, params: dict, batch: dict,
+              rules: Rules = NO_RULES):
+    return _bce_with_logits(
+        dlrm_forward(cfg, params, batch, rules, bag=gather_embedding_bag),
+        batch["label"])
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +176,12 @@ def din_forward(cfg: DINConfig, params: dict, batch: dict,
     return _mlp(params["mlp"], torch.cat([user, tgt], dim=-1))[:, 0]
 
 
+def din_loss(cfg: DINConfig, params: dict, batch: dict,
+             rules: Rules = NO_RULES):
+    return _bce_with_logits(din_forward(cfg, params, batch, rules),
+                            batch["label"])
+
+
 # ---------------------------------------------------------------------------
 # Two-tower retrieval (YouTube RecSys'19 style)
 # ---------------------------------------------------------------------------
@@ -191,13 +216,14 @@ def init_two_tower(cfg: TwoTowerConfig, gen: torch.Generator) -> dict:
 
 
 def user_encode(cfg: TwoTowerConfig, params: dict, user_feats,
-                rules: Rules = NO_RULES):
+                rules: Rules = NO_RULES, *, bag=None):
     """Unit user vectors [B, D] from the mean of each user's bag (id 0 is
-    padding)."""
+    padding), taken by ``bag`` (None: ``embedding_bag``, the kernel)."""
+    bag = bag or embedding_bag
     cd = cfg.compute_dtype
-    bag = embedding_bag(params["user_embed"].to(cd), user_feats,
-                        (user_feats > 0).to(cd), mode="mean")
-    return _unit_rows(_mlp(params["user_tower"], bag))
+    mean = bag(params["user_embed"].to(cd), user_feats,
+               (user_feats > 0).to(cd), mode="mean")
+    return _unit_rows(_mlp(params["user_tower"], mean))
 
 
 def item_encode(cfg: TwoTowerConfig, params: dict, item_ids,
@@ -205,6 +231,21 @@ def item_encode(cfg: TwoTowerConfig, params: dict, item_ids,
     cd = cfg.compute_dtype
     e = params["item_embed"][item_ids.long()].to(cd)
     return _unit_rows(_mlp(params["item_tower"], e))
+
+
+def two_tower_loss(cfg: TwoTowerConfig, params: dict, batch: dict,
+                   rules: Rules = NO_RULES):
+    """Sampled softmax with shared negatives and logQ correction. batch:
+    user_feats [B, bag], pos_item [B], neg_items [N], neg_logq [N]."""
+    u = user_encode(cfg, params, batch["user_feats"], rules,
+                    bag=gather_embedding_bag)                    # [B, D]
+    pos = item_encode(cfg, params, batch["pos_item"], rules)     # [B, D]
+    neg = item_encode(cfg, params, batch["neg_items"], rules)    # [N, D]
+    temp = 20.0
+    s_pos = (u * pos).sum(-1) * temp                             # [B]
+    s_neg = u @ neg.T * temp - batch["neg_logq"][None, :]        # [B, N]
+    logits = torch.cat([s_pos[:, None], s_neg], dim=1)
+    return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
 
 
 def two_tower_score_candidates(cfg: TwoTowerConfig, params: dict,
@@ -245,6 +286,24 @@ class Bert4RecConfig:
 
 def init_bert4rec(cfg: Bert4RecConfig, gen: torch.Generator) -> dict:
     return init_tf_params(cfg.tf_config(), gen)
+
+
+def bert4rec_loss(cfg: Bert4RecConfig, params: dict, batch: dict,
+                  rules: Rules = NO_RULES):
+    """Masked-item prediction with sampled softmax: items/targets/mask
+    [B, S] and shared negatives ``neg_items`` [N] (a full softmax over a
+    1M-item catalog would hold [B, S, V] logits)."""
+    hidden, _, _ = forward(cfg.tf_config(), params, batch["items"], rules,
+                           attention=scores_attention)
+    emb = params["embed"].to(hidden.dtype)
+    pos_e = emb[batch["targets"].long()]                         # [B, S, D]
+    pos = torch.einsum("bsd,bsd->bs", hidden, pos_e)
+    neg_e = emb[batch["neg_items"].long()]                       # [N, D]
+    neg = hidden.float() @ neg_e.float().T                       # [B, S, N]
+    lse = torch.logaddexp(pos.float(), torch.logsumexp(neg, dim=-1))
+    nll = lse - pos
+    mask = batch["mask"].float()
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def bert4rec_score_catalog(cfg: Bert4RecConfig, params: dict, items,

@@ -2,27 +2,36 @@
 (sort-based static-capacity dispatch), optional bidirectional mode with
 learned positions (BERT4Rec reuses this), optional SPLADE-style sparse head.
 
-The port of ``repro.models.transformer``'s serving path, as plain functions
-over a parameter dict with the reference's layout: layer weights stacked
+The port of ``repro.models.transformer``, as plain functions over a
+parameter dict with the reference's layout: layer weights stacked
 ``[L, ...]`` and applied as ``x @ W``, so parameters carry over unchanged
-(``bridge.transformer_params_from_arrays``). Attention runs through the
-hand-written flash-attention kernel (``kernels.flash_attention``) on CUDA
-tensors and its plain version on CPU tensors; the projections, the FFN
+(``bridge.transformer_params_from_arrays``). The projections, the FFN
 (dense or MoE: the expert products are batched ``torch.bmm``) and the
 logits are ``torch.matmul``.
+
+Attention is an argument of the forward passes, chosen by the caller.
+Serving takes the default, ``attention``: the hand-written flash-attention
+kernel (``kernels.flash_attention``) on CUDA tensors, its plain version on
+CPU tensors. The kernel has no backward, so the training loss
+(``lm_loss``, and every loss that differentiates a forward) passes
+``scores_attention``, the port of the reference's ``_attention``, which
+autograd differentiates.
 
 Mixed precision: parameters are stored in ``param_dtype`` (fp32 by
 default) and every weight is cast to ``compute_dtype`` where it is used, as
 in the reference. ``compute_params`` makes that cast once, ahead of serving;
 the values are the same. Logits are float32 at any compute dtype.
 
-Single-card semantics: ``Rules``' sharding hints, ``remat``,
-``remat_policy``, ``unroll`` and ``attn_chunk`` are kept so that the
-configs read as the reference's, and have no effect here; ``Rules.dp_size``
-does, as the MoE layer's number of dispatch groups. ``forward`` returns the
-MoE layers' summed load-balancing loss; the training loss is not ported
-yet. A KV cache is updated in place (the reference returns a new one) and
-returned.
+Single-card semantics: ``Rules``' sharding hints and ``unroll`` are kept
+so that the configs read as the reference's, and have no effect here;
+``Rules.dp_size`` does, as the MoE layer's number of dispatch groups.
+``attn_chunk`` bounds ``scores_attention``'s scores to that many query
+rows at a time (the kernel never holds more than a tile's). ``remat``
+recomputes each layer in the backward pass (``remat_policy="full"``,
+``torch.utils.checkpoint``) when a forward without a cache runs with
+gradients on. ``forward`` returns the MoE layers' summed load-balancing
+loss. A KV cache is updated in place (the reference returns a new one)
+and returned.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core.index import check_full_f32
 from ..core.traversal import _topk_stable
@@ -64,10 +74,10 @@ class TransformerConfig:
     sparse_head: bool = False  # SPLADE-style log1p-relu-maxpool head
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    remat: bool = True         # no effect on one card (inference only)
-    remat_policy: str = "full"
+    remat: bool = True         # recompute each layer in the backward pass
+    remat_policy: str = "full"  # only "full" is ported
     unroll: bool = False       # no effect: layers are a Python loop
-    attn_chunk: int = 0        # no effect: the kernel never holds all scores
+    attn_chunk: int = 0        # >0: scores_attention holds chunk rows at once
     kv_quant: bool = False     # int8 KV cache (per-position scales)
 
     @property
@@ -229,11 +239,13 @@ def rope(x, positions, theta):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def attention(q, k, v, causal: bool, q_offset: int):
+def attention(q, k, v, causal: bool, q_offset: int, chunk: int = 0):
     """q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh] -> [B, Sq, H, Dh].
 
     One flash-attention call on transposed views (the kernel reads the
-    [B, S, H, Dh] layout in place). The reference's ``_attention`` divides
+    [B, S, H, Dh] layout in place); ``chunk`` has nothing to bound, as the
+    kernel holds one tile of scores at a time. The kernel has no backward:
+    on the card it refuses inputs that require grad in grad mode. The reference's ``_attention`` divides
     the float32 scores by sqrt(Dh) and masks with -1e30; the kernel
     multiplies by 1/sqrt(Dh) and masks with -inf: the same up to float32
     rounding. The reference rounds the softmax weights to the compute
@@ -244,6 +256,34 @@ def attention(q, k, v, causal: bool, q_offset: int):
                            v.transpose(1, 2), causal=causal,
                            kv_offset=q_offset, round_p=True)
     return o.transpose(1, 2)
+
+
+def scores_attention(q, k, v, causal: bool, q_offset: int, chunk: int = 0):
+    """q: [B, Sq, H, Dh]; k, v: [B, Skv, Hkv, Dh] -> [B, Sq, H, Dh], with
+    the arithmetic of the reference's ``_attention``: float32 scores of the
+    widened operands (each product exact, as the reference's float32
+    accumulation of compute-dtype operands) divided by sqrt(Dh), -1e30
+    above the causal diagonal, a float32 softmax, and the weights cast to
+    v's dtype before the weighted sum. Plain torch ops, so autograd
+    differentiates it: the train path's attention. With ``chunk`` > 0 and
+    Sq a multiple of it, the query rows go ``chunk`` at a time (each at its
+    own offset), so the scores of only ``chunk`` rows exist at once."""
+    b, sq, h, dh = q.shape
+    if chunk and sq > chunk and sq % chunk == 0:
+        return torch.cat([scores_attention(q[:, i:i + chunk], k, v, causal,
+                                           q_offset + i)
+                          for i in range(0, sq, chunk)], dim=1)
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    s = s / torch.sqrt(torch.tensor(float(dh)))
+    if causal:
+        q_pos = q_offset + torch.arange(sq, device=q.device)
+        mask = q_pos[:, None] >= torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    return o.reshape(b, sq, h, dh)
 
 
 def _dense_ffn(x, w_gate, w_up, w_down, rules: Rules):
@@ -320,7 +360,7 @@ def moe_route(x, router, moe: MoEConfig, rules: Rules = NO_RULES
 def _moe_rows(r: MoEDispatch) -> torch.Tensor:
     """[G, Tl, K]: each kept assignment's row of the E-major expert buffer
     [E, G, C] flattened; a dropped assignment gets row 0 (``_moe_combine``
-    gives it weight 0)."""
+    leaves it out)."""
     g, _, _ = r.top_e.shape
     grp = torch.arange(g, device=r.top_e.device).view(g, 1, 1)
     return torch.where(r.keep, (r.top_e * g + grp) * r.capacity + r.slot, 0)
@@ -331,18 +371,18 @@ def _moe_combine(out_rows, row, r: MoEDispatch) -> torch.Tensor:
     [E x G x C, D]), each times its weight in the output's dtype, added
     from zero in ascending-expert order: the order of the reference's
     scatter-add over the expert-sorted assignments (one token's k experts
-    are distinct). A dropped assignment adds row 0 times a zero weight:
-    a signed zero, so y is bit-equal to adding nothing, as the reference's
-    zero rows add nothing. Plain adds, no atomics, so the sum is the same
-    on every run."""
+    are distinct). A dropped assignment adds +0, selected by ``keep`` as
+    the reference selects its zero rows, so its row-0 output never enters
+    the sum (a non-finite row 0 stays out of other tokens). Plain adds, no
+    atomics, so the sum is the same on every run."""
     k = row.shape[-1]
     by_expert = torch.argsort(r.top_e, dim=-1, stable=True)
     row = torch.gather(row, -1, by_expert).view(-1, k)
-    w = torch.where(r.keep, r.top_p, 0.0)
-    w = torch.gather(w, -1, by_expert).to(out_rows.dtype).view(-1, k, 1)
+    keep = torch.gather(r.keep, -1, by_expert).view(-1, k, 1)
+    w = torch.gather(r.top_p, -1, by_expert).to(out_rows.dtype).view(-1, k, 1)
     y = out_rows.new_zeros(row.shape[0], out_rows.shape[-1])
     for j in range(k):
-        y = y + out_rows[row[:, j]] * w[:, j]
+        y = y + torch.where(keep[:, j], out_rows[row[:, j]] * w[:, j], 0.0)
     return y
 
 
@@ -394,10 +434,12 @@ def _write_cache(cache_t, fresh, start: int):
 
 
 def _layer(cfg: TransformerConfig, rules: Rules, x, lp, positions,
-           layer_cache=None, cache_len: int = 0):
+           layer_cache=None, cache_len: int = 0, attn=None):
     """One block. x: [B, S, D]; ``layer_cache`` (k, v) or, with
     ``kv_quant``, (k, v, k_scale, v_scale) of this layer, written in
-    place. Returns (x, the MoE aux loss or None)."""
+    place; ``attn`` is ``attention`` (the kernel; None) or
+    ``scores_attention``. Returns (x, the MoE aux loss or None)."""
+    attn = attn or attention
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.compute_dtype
@@ -424,7 +466,7 @@ def _layer(cfg: TransformerConfig, rules: Rules, x, lp, positions,
         _write_cache(cv, v, cache_len)
         k, v = ck, cv
         q_offset = cache_len
-    o = attention(q, k, v, cfg.causal, q_offset)
+    o = attn(q, k, v, cfg.causal, q_offset, cfg.attn_chunk)
     x = x + o.reshape(b, s, h * dh) @ rules.w(lp["wo"], cd)
     xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).reshape(b * s, -1)
     aux = None
@@ -442,11 +484,16 @@ CACHE_KEYS_Q = ("k", "v", "k_scale", "v_scale")
 
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             rules: Rules = NO_RULES, cache: dict | None = None,
-            cache_len: int | None = None):
+            cache_len: int | None = None, *, attention=None):
     """tokens: [B, S]. Returns (hidden [B, S, D], aux_loss, cache or
     None): the aux loss is the sum of the MoE layers' (a float32 scalar,
     0 for a dense model); a cache is written in place from position
-    ``cache_len``."""
+    ``cache_len``. ``attention``: None for the kernel (``attention``,
+    serving) or ``scores_attention`` (a forward that autograd
+    differentiates). With
+    ``cfg.remat``, no cache and gradients on, each layer runs under
+    ``torch.utils.checkpoint`` (``remat_policy="full"``: only its input is
+    kept, the layer is recomputed in the backward pass)."""
     cd = cfg.compute_dtype
     b, s = tokens.shape
     tokens = tokens.long()
@@ -456,12 +503,26 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     if cfg.max_position:
         x = x + params["pos_embed"][positions].to(cd)
     keys = CACHE_KEYS_Q if cfg.kv_quant else CACHE_KEYS
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(f"remat_policy {cfg.remat_policy!r}: only "
+                                  f"'full' is ported")
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    # one unbind per stacked weight: its backward stacks the layers'
+    # gradients once (indexing each layer would add a full-size gradient
+    # per layer)
+    stacked = {name: t.unbind(0) for name, t in params["layers"].items()}
     for i in range(cfg.n_layers):
-        lp = {name: t[i] for name, t in params["layers"].items()}
-        layer_cache = (None if cache is None
-                       else tuple(cache[key][i] for key in keys))
-        x, a = _layer(cfg, rules, x, lp, positions, layer_cache, start)
+        lp = {name: t[i] for name, t in stacked.items()}
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _layer, cfg, rules, x, lp, positions, None, 0, attention,
+                use_reentrant=False)
+        else:
+            layer_cache = (None if cache is None
+                           else tuple(cache[key][i] for key in keys))
+            x, a = _layer(cfg, rules, x, lp, positions, layer_cache, start,
+                          attention)
         if a is not None:
             aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -486,14 +547,34 @@ def logits_fn(cfg: TransformerConfig, params: dict, hidden: torch.Tensor,
 
 
 def splade_encode(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
-                  mask: torch.Tensor, rules: Rules = NO_RULES):
+                  mask: torch.Tensor, rules: Rules = NO_RULES, *,
+                  attention=None):
     """SPLADE-style learned sparse representation: [B, vocab], the max over
-    the masked sequence of log(1 + relu(logits))."""
-    hidden, _, _ = forward(cfg, params, tokens, rules)
+    the masked sequence of log(1 + relu(logits)). ``attention`` as in
+    ``forward``: the kernel to encode, ``scores_attention`` to train."""
+    hidden, _, _ = forward(cfg, params, tokens, rules, attention=attention)
     acts = torch.log1p(torch.relu(logits_fn(cfg, params, hidden, rules)))
     acts = acts.masked_fill(~(mask[..., None] > 0), -torch.inf)
     rep = acts.amax(dim=1)[:, :cfg.vocab]          # drop pad rows
     return torch.clamp_min(rep, 0.0)
+
+
+def lm_loss(cfg: TransformerConfig, params: dict, batch: dict,
+            rules: Rules = NO_RULES):
+    """The training loss of ``batch`` {"tokens", "targets"[, "mask"]}: the
+    masked mean over positions of logsumexp(logits) - logits[target] (over
+    the padded vocab, as the reference), plus 0.01 x the MoE aux loss.
+    The forward differentiates: ``scores_attention``."""
+    hidden, aux, _ = forward(cfg, params, batch["tokens"], rules,
+                             attention=scores_attention)
+    logits = logits_fn(cfg, params, hidden, rules)
+    tgt = batch["targets"].long()
+    picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - picked
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return loss + 0.01 * aux
 
 
 # --------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 
 The port of ``repro.sparse_ops``: ``embedding_bag`` (gather and weighted
 sum, a bag padded by weight-0 slots) goes through the hand-written
-embedding-bag kernel on CUDA tensors (``kernels.embedding_bag``);
-``segment_softmax``, ``scatter_mean`` and ``degree`` are scatters over a
-segment index (``scatter_reduce`` / ``index_add``).
+embedding-bag kernel on CUDA tensors (``kernels.embedding_bag``), which
+has no backward; ``gather_embedding_bag`` computes the same bags with
+plain torch ops, as the reference's jnp ``embedding_bag`` does, so
+autograd differentiates it: the train path's bag. ``segment_softmax``,
+``scatter_mean`` and ``degree`` are scatters over a segment index
+(``scatter_reduce`` / ``index_add``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,31 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                              device=indices.device)
     out = eb.embedding_bag(table, indices.to(torch.int32).contiguous(),
                            weights.to(table.dtype).contiguous())
+    if mode == "mean":
+        denom = torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1e-9)
+        out = out / denom.to(out.dtype)
+    return out
+
+
+def gather_embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                         weights: torch.Tensor | None = None,
+                         mode: str = "sum") -> torch.Tensor:
+    """``embedding_bag``'s contract (the same shapes, the stacked form
+    included) with the reference's arithmetic: gather the rows, multiply
+    each by its weight in the table's dtype and sum over the bag. Plain
+    torch ops, so autograd differentiates it."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode {mode!r} is not sum or mean")
+    if weights is None:
+        weights = torch.ones(indices.shape, dtype=table.dtype,
+                             device=indices.device)
+    idx = indices.long()
+    if table.dim() == 3:                   # [F, V, D] with [B, F, L]
+        field = torch.arange(table.shape[0], device=idx.device)[:, None]
+        rows = table[field, idx]
+    else:
+        rows = table[idx]
+    out = (rows * weights[..., None].to(rows.dtype)).sum(dim=-2)
     if mode == "mean":
         denom = torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1e-9)
         out = out / denom.to(out.dtype)

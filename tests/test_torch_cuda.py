@@ -1054,3 +1054,90 @@ def test_launcher_kernel_engine_on_card(cuda, capsys, monkeypatch):
         np.testing.assert_array_equal(got.ids, want.ids)
         np.testing.assert_allclose(got.scores, want.scores, rtol=1e-6)
     assert "# serving engine: kernel" in capsys.readouterr().out
+
+
+def test_kernels_refuse_grad_and_launch_under_no_grad(cuda):
+    """K5 and K6 have no backward: on inputs that require grad, in grad
+    mode, they raise (their output would carry no gradient); under
+    ``torch.no_grad()``, or on detached inputs, they launch."""
+    q, k, v = (torch.randn(1, 4, 32, 64, device=cuda) for _ in range(3))
+    table = torch.randn(50, 16, device=cuda)
+    idx = torch.randint(0, 50, (4, 3), device=cuda, dtype=torch.int32)
+    w = torch.ones(4, 3, device=cuda)
+    for t in (q, table):
+        t.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        eb.embedding_bag(table, idx, w)
+    fa.reset_launches()
+    eb.reset_launches()
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+        eb.embedding_bag(table, idx, w)
+    fa.flash_attention(q.detach(), k, v)
+    eb.embedding_bag(table.detach(), idx, w)
+    assert fa.launches == 2 and eb.launches == 2
+    torch.cuda.synchronize()
+
+
+def _route_margin(cfg, params, batch) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th router logit
+    over an MoE model's layers, on the CPU (inf for a dense model)."""
+    from repro_torch.models import transformer as T
+    if cfg.moe is None:
+        return float("inf")
+    margins, real = [], T.moe_route
+
+    def spy(x, router, moe, rules=T.NO_RULES):
+        r = real(x, router, moe, rules)
+        top = torch.sort(r.logits, dim=-1, descending=True).values
+        margins.append(float((top[..., moe.top_k - 1]
+                              - top[..., moe.top_k]).min()))
+        return r
+    T.moe_route = spy
+    try:
+        with torch.no_grad():
+            T.lm_loss(cfg, params, batch)
+    finally:
+        T.moe_route = real
+    return min(margins)
+
+
+@pytest.mark.parametrize("arch_id", ["granite-3-2b", "granite-moe-1b-a400m",
+                                     "dlrm-rm2"])
+def test_train_step_on_card_matches_cpu_and_runs_no_kernel(cuda, arch_id):
+    """A smoke train step on the card: loss within rtol 1e-5 and every
+    gradient leaf within 1e-4 max|cpu| + 1e-6 of the same step on the CPU
+    (the MoE model's routing identical: no near-tie of router logits
+    within 1e-4), with no K5 or K6 launch (the train path differentiates
+    through ``scores_attention`` and ``gather_embedding_bag``); then one
+    ``make_train_step`` on the card, still without a kernel launch."""
+    from repro_torch import tree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    arch = get_arch(arch_id)
+    shape = "train_4k" if arch.family == "lm" else "train_batch"
+    cfg = arch.smoke()
+    params = steps.init_fn(arch, shape, cfg, device="cpu")(0)
+    batch = steps.smoke_batch(arch, shape, cfg, device="cpu")["batch"]
+    if arch.family == "lm":
+        assert _route_margin(cfg, params, batch) > 1e-4
+    lfn = steps.loss_fn(arch, shape, cfg)
+    loss_cpu, g_cpu = tree.value_and_grad(lfn, params, batch)
+    card_params, card_batch = _on(params, cuda), _on(batch, cuda)
+    fa.reset_launches()
+    eb.reset_launches()
+    loss_card, g_card = tree.value_and_grad(lfn, card_params, card_batch)
+    torch.testing.assert_close(loss_card.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for a, b in zip(tree.leaves(g_card), tree.leaves(g_cpu)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-6)
+    state = {"params": card_params, "opt": adamw_init(card_params)}
+    state, metrics = steps.make_train_step(
+        arch, shape, cfg, opt_cfg=AdamWConfig(warmup_steps=1,
+                                              total_steps=10))(state,
+                                                               card_batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert fa.launches == 0 and eb.launches == 0
+    torch.cuda.synchronize()

@@ -237,6 +237,29 @@ def test_aux_loss_of_a_uniform_router_is_one():
     assert float(aux) == pytest.approx(1.0, abs=1e-6)
 
 
+def test_nonfinite_token_stays_in_its_own_row():
+    """A non-finite token spreads to no other token: at capacity factor
+    0.5 (t 16, d 8, E 4, top-2: many assignments drop, and each dropped
+    one points at buffer row 0), with token 0 set to inf, the non-finite
+    output rows are the reference's, token 0's alone (a dropped assignment
+    is selected out of the sum, not multiplied by a zero weight)."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((16, 8)).astype(np.float32)
+    x[0] = np.inf
+    weights = _weights(rng, e=4, d=8, f=12)
+    jy, _ = jax.jit(lambda *a: J._moe_ffn(*a, J.MoEConfig(4, 2, 12, 0.5),
+                                          J.Rules()))(
+        jnp.asarray(x), *(jnp.asarray(w) for w in weights))
+    moe = T.MoEConfig(4, 2, 12, 0.5)
+    tx, tw = torch.from_numpy(x), [torch.from_numpy(w) for w in weights]
+    ty, _ = T._moe_ffn(tx, *tw, moe)
+    want = set(np.nonzero(~np.isfinite(np.asarray(jy)).all(-1))[0].tolist())
+    got = set(torch.nonzero(~torch.isfinite(ty).all(-1))[:, 0].tolist())
+    assert want == {0}
+    assert got == want
+    assert not bool(T.moe_route(tx, tw[0], moe).keep.all())   # drops happen
+
+
 def _moe_model(cf=16.0):
     return T.TransformerConfig(
         n_layers=1, d_model=32, n_heads=2, n_kv_heads=2, d_ff=0, vocab=64,

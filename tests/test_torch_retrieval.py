@@ -292,7 +292,10 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     and searches it through the ``dense``, ``cascade`` and ``rrf`` engines
     and scores a ranking through ``repro_torch.eval``, runs a smoke LM
     decode step (dense and MoE) and a smoke DLRM serve step, and serves a
-    stream through the launcher (``repro_torch.launch.serve.main``)."""
+    stream through the launcher (``repro_torch.launch.serve.main``), runs
+    a smoke LM ``make_train_step``, a 4-step ``Trainer`` that fails at step
+    3 and resumes from its step-2 checkpoint, and trains through the
+    training launcher (``repro_torch.launch.train.main``)."""
     script = textwrap.dedent("""
         import sys
 
@@ -449,6 +452,39 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
         stats = launcher.main(["--docs", "1024", "--requests", "8",
                                "--engine", "kernel", "--device", "cpu"])
         assert stats["n"] == 8 and stats["completed"] == 8
+
+        from repro_torch.data import lm_batch
+        from repro_torch.launch import train as train_launcher
+        from repro_torch.train.optimizer import adamw_init
+        from repro_torch.train.trainer import (SimulatedFailure, Trainer,
+                                               TrainerConfig)
+        arch = get_arch("granite-3-2b")
+        cfg = arch.smoke()
+        params = steps.init_fn(arch, "train_4k", cfg, device="cpu")(0)
+        batch = steps.smoke_batch(arch, "train_4k", cfg, device="cpu")
+        state, m = steps.make_train_step(arch, "train_4k", cfg)(
+            {"params": params, "opt": adamw_init(params)}, batch["batch"])
+        assert np.isfinite(float(m["loss"])) and int(state["opt"]["step"]) == 1
+        with tempfile.TemporaryDirectory() as d:
+            def trainer(fail_at=None):
+                return Trainer(
+                    steps.loss_fn(arch, "train_4k", cfg),
+                    steps.init_fn(arch, "train_4k", cfg, device="cpu"),
+                    lambda step: lm_batch(step, batch=2, seq=16,
+                                          vocab=cfg.vocab, device="cpu"),
+                    TrainerConfig(total_steps=4, ckpt_every=2, out_dir=d,
+                                  fail_at_step=fail_at))
+            try:
+                trainer(fail_at=3).run()
+                raise AssertionError("no injected failure")
+            except SimulatedFailure:
+                pass
+            res = trainer().run()
+            assert len(res["losses"]) == 2          # resumed at step 2
+            res = train_launcher.main(["--arch", "dlrm-rm2", "--steps", "3",
+                                       "--out", d + "/cli",
+                                       "--device", "cpu"])
+            assert len(res["losses"]) == 3
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not leaked, leaked
