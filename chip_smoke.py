@@ -130,12 +130,24 @@ Phases, one JSON line each:
             layer 0's forward and backward on 1 x 512 of the inputs
             against the port's CPU path (every gradient leaf within 2% of
             its max |cpu|)
-  train_cli ``repro_torch.launch.train.main`` in-process, each of the 9
-            ported archs at its smoke config for 10 steps on the card and
-            on the CPU from the same initial state (the card's, as the CPU
-            run's step-0 checkpoint): each step's loss within 1e-3
-            relative (MoE: before the first routing flip, counted); logs
-            and checkpoints written; no K5/K6 launch
+  train_cli ``repro_torch.launch.train.main`` in-process, each of the 10
+            archs at its smoke config (SchNet: its molecule cell) for 10
+            steps on the card and on the CPU from the same initial state
+            (the card's, as the CPU run's step-0 checkpoint): each step's
+            loss within 1e-3 relative (MoE: before the first routing
+            flip, counted); logs and checkpoints written; no K5/K6 launch
+  train_gnn SchNet at its full width (3 interactions, d 64, 300 RBF,
+            cutoff 10, float32) trained on the card, 3 ``make_train_step``
+            steps in each GNN cell through ``adapt_config``: molecule
+            (molecule_batch 128 x 30 atoms x 64 edges), full_graph_sm
+            (the whole graph of a Cora-sized GraphStore), minibatch_lg (a
+            1024-seed, fanout 15 x 10 sample of a store of Reddit's
+            nodes and a quarter of its edges), ogb_products (all
+            2,449,029 nodes, 2^23 of its edges): step ms, molecules/s or
+            nodes/s, peak bytes, the losses (finite, changing), a
+            profiled step, no kernel launch; the first step's loss and
+            every gradient leaf against the port's CPU path on the same
+            parameters and batch (ogb_products on its first 2^20 edges)
   sparse_encoder  ``repro_torch.launch.train_sparse_encoder`` at
             ``--full`` (12 layers, d 768, vocab 30522, float32): in a
             child process with deterministic algorithms, a run that fails
@@ -161,6 +173,12 @@ Phases, one JSON line each:
             serve_p99 (batch 512) and retrieval_cand (1,000,448 candidates,
             top-100) through embedding_bag / flash_attention, each against
             the same step on the CPU
+  placement two-tower-retrieval at full width on an NCCL group of one
+            rank: its checkpoint restored onto a 1 x 1 ("data", "model")
+            mesh as DTensors laid out by ``param_shardings(..., "tp")``;
+            ``make_serve_step(..., mesh=, sharded_topk=True)`` on
+            retrieval_cand bit-equal to the unsharded step, K5 counted
+            (more ranks run on gloo on the CPU, in the tests)
   kernels_models  flash_attention (routes mma, split and f32) and
             embedding_bag against their plain versions on the main path's
             inputs (captured from the lm and recsys runs, where a zeroed
@@ -175,7 +193,7 @@ Then the six kernels' summary line (flash_attention once, with its routes
 mma, split and f32, the MoE LMs' and the encoder's calls included; K1
 and K3 also with their serve_sched and hybrid launches, K2 and K4 with
 their sharded launches, K2 with the launcher's, K1 and K2 with the
-sparse encoder's), the
+sparse encoder's, K5 with the placement phase's), the
 nvidia-smi line and, last, the one-line verdict.
 Any failed check raises and the script exits non-zero.
 Float32 matrix products run in full float32 (TF32 off).
@@ -2878,6 +2896,8 @@ def phase_lm_moe(seed: int, dev) -> dict:
 
 TRAIN_SEQ, TRAIN_STEPS, TRAIN_CHECK_TOKENS = 4096, 3, 512
 CLI_STEPS, CLI_RTOL = 10, 1e-3
+# the launcher's default cell per family
+TRAIN_CELL = {"lm": "train_4k", "gnn": "molecule", "recsys": "train_batch"}
 ENC_STEPS, ENC_CKPT_EVERY, ENC_FAIL_AT = 50, 25, 30
 
 
@@ -2999,8 +3019,9 @@ def train_layer0_vs_cpu(cfg, layer0, x0, dev) -> dict:
 
 
 def phase_train_cli(smi: str, dev) -> None:
-    """``repro_torch.launch.train.main`` in-process, each ported arch at
-    its smoke config for CLI_STEPS steps on the card and, from the same
+    """``repro_torch.launch.train.main`` in-process, each of the ten archs
+    at its smoke config (its default cell: SchNet's is ``molecule``) for
+    CLI_STEPS steps on the card and, from the same
     initial state (the card's, saved as the CPU run's step-0 checkpoint),
     on the CPU: every step's loss within a relative CLI_RTOL (the MoE
     archs: on the steps before the first routing flip between the two
@@ -3019,7 +3040,7 @@ def phase_train_cli(smi: str, dev) -> None:
     rows = {}
     for arch_id in ARCH_IDS:
         arch = get_arch(arch_id)
-        shape = "train_4k" if arch.family == "lm" else "train_batch"
+        shape = TRAIN_CELL[arch.family]
         cfg = arch.smoke()
         with tempfile.TemporaryDirectory() as d:
             init = steps.init_fn(arch, shape, cfg, device=dev)(0)
@@ -3087,6 +3108,302 @@ def phase_train_cli(smi: str, dev) -> None:
                    f"CPU's from the same initial state (MoE: before the "
                    f"first routing flip)",
          seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+
+
+# --------------------------------------------------------------------------
+# SchNet trained on the card (train_gnn)
+# --------------------------------------------------------------------------
+
+GNN_STEPS = 3
+GNN_CELLS = ("molecule", "full_graph_sm", "minibatch_lg", "ogb_products")
+# minibatch_lg: a store of Reddit's 232,965 nodes and a quarter of its
+# 114,615,892 edges (the store's edge count shapes only the sampled
+# degrees; each step trains on a 1024-seed subgraph, fanouts 15 x 10).
+GNN_REDDIT_NODES, GNN_REDDIT_EDGES, GNN_SEEDS = 232965, 28653973, 1024
+# ogb_products: all 2,449,029 nodes and 2^23 of its 61,859,140 edges. Per
+# edge the backward pass keeps the float32 RBF row (1,200 B, once) and,
+# per interaction, the filter's pre-activation, the filter and the
+# gathered source row (3 x 256 B), with ~1 KB of transients: ~4.5 KB an
+# edge, ~280 GB for the whole graph, ~38 GB at 2^23 (2^24 would pass 60
+# GB with the node states). The CPU check runs on its first 2^20 edges.
+GNN_OGB_EDGES, GNN_CHECK_EDGES = 2 ** 23, 2 ** 20
+# The card against the CPU on the same parameters and batch: the loss
+# within GNN_LOSS_RTOL relative, every gradient leaf within GNN_GRAD_RTOL
+# of its max |cpu| (+ GNN_GRAD_ATOL): float32 with TF32 off, but the
+# card's scatters add in atomic order and its products in other orders.
+GNN_LOSS_RTOL, GNN_GRAD_RTOL, GNN_GRAD_ATOL = 1e-5, 1e-4, 1e-7
+
+
+def whole_graph(store, n_edges=None) -> dict:
+    """A ``GraphStore``'s whole graph as one batch (numpy): every node's
+    features and label and every node in the loss; its first ``n_edges``
+    edges (all by default), each edge's distance by
+    ``GraphStore.sample``'s formula."""
+    nodes = np.arange(store.n_nodes)
+    src, dst = store.src[:n_edges], store.dst[:n_edges]
+    dist_nodes = 1.0 + 9.0 / np.sqrt(np.maximum(np.diff(store.indptr), 1))
+    return {"x": store.features(nodes), "edge_src": src, "edge_dst": dst,
+            "edge_dist": ((dist_nodes[src] + dist_nodes[dst]) / 2).astype(
+                np.float32),
+            "labels": store.labels(nodes),
+            "train_mask": np.ones(store.n_nodes, np.float32)}
+
+
+def gnn_data(shape: str, cfg, seed: int):
+    """A GNN cell's data, made from ``seed``: the batches of the
+    GNN_STEPS steps and the check batch (dicts of CPU tensors) and what
+    they hold."""
+    from repro_torch.configs import GNN_SHAPE_DEFS
+    from repro_torch.data import GraphStore, molecule_batch, to_device
+    d = GNN_SHAPE_DEFS[shape]
+    if shape == "molecule":
+        batches = [molecule_batch(i, batch=d["batch"], atoms=d["atoms"],
+                                  edges=d["edges"], n_types=cfg.n_atom_types,
+                                  seed=seed, device="cpu")
+                   for i in range(GNN_STEPS)]
+        return batches, batches[0], {
+            "source": "molecule_batch (data/stream.py), one per step",
+            "molecules": d["batch"], "atoms": d["atoms"],
+            "edges": d["edges"]}
+    if shape == "minibatch_lg":
+        store = GraphStore(GNN_REDDIT_NODES, GNN_REDDIT_EDGES, d["d_feat"],
+                           d["classes"], seed=seed)
+        batches = [to_device("cpu", **store.sample(i, GNN_SEEDS))
+                   for i in range(GNN_STEPS)]
+        return batches, batches[0], {
+            "source": f"GraphStore({GNN_REDDIT_NODES}, {GNN_REDDIT_EDGES}, "
+                      f"{d['d_feat']}, {d['classes']}).sample(step, "
+                      f"{GNN_SEEDS}), fanouts 15, 10",
+            "store_nodes": GNN_REDDIT_NODES, "store_edges": GNN_REDDIT_EDGES}
+    n_edges = d["edges"] if shape == "full_graph_sm" else GNN_OGB_EDGES
+    store = GraphStore(d["nodes"], n_edges, d["d_feat"], d["classes"],
+                       seed=seed)
+    batch = to_device("cpu", **whole_graph(store))
+    check = batch
+    if shape == "ogb_products":
+        check = {**batch, **to_device("cpu", **{
+            k: v for k, v in whole_graph(store, GNN_CHECK_EDGES).items()
+            if k.startswith("edge_")})}
+    return [batch] * GNN_STEPS, check, {
+        "source": f"the whole graph of GraphStore({d['nodes']}, {n_edges}, "
+                  f"{d['d_feat']}, {d['classes']})",
+        "store_nodes": d["nodes"], "store_edges": n_edges}
+
+
+def gnn_vs_cpu(lfn, params, batch, dev) -> dict:
+    """The loss and every gradient leaf of ``lfn`` on the card against the
+    port's CPU path, on the same parameters and batch."""
+    from repro_torch import tree
+    loss, grads = tree.value_and_grad(lfn, params, tree_to(batch, dev))
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = tree.value_and_grad(lfn, tree_to(params, "cpu"),
+                                              batch)
+    cpu_s = time.perf_counter() - t0
+    gap = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    require(gap <= GNN_LOSS_RTOL, f"train_gnn: loss {float(loss)} vs the "
+                                  f"CPU's {float(loss_cpu)}")
+    worst = {}
+    for (name, got), ref in zip(tree.leaves_with_paths(grads),
+                                tree.leaves(grads_cpu)):
+        diff = float((got.cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        require(diff <= GNN_GRAD_RTOL * scale + GNN_GRAD_ATOL,
+                f"train_gnn: gradient {name} max|d| {diff} vs max|cpu| "
+                f"{scale}")
+        worst[name] = diff / scale if scale else diff
+    return {"loss_card": float(loss), "loss_cpu": float(loss_cpu),
+            "loss_rel_gap": gap, "grad_max_abs_diff_over_max_abs_cpu": worst,
+            "edges": int(batch["edge_src"].numel()), "cpu_seconds": cpu_s,
+            "tolerance": f"loss within {GNN_LOSS_RTOL} relative; each "
+                         f"gradient leaf max|d| <= {GNN_GRAD_RTOL} "
+                         f"max|cpu| + {GNN_GRAD_ATOL}"}
+
+
+def phase_train_gnn(seed: int, dev, smi: str) -> None:
+    """SchNet at its full published width (3 interactions, d 64, 300 RBF,
+    cutoff 10, float32, TF32 off) trained on the card: each GNN cell
+    through ``adapt_config`` and GNN_STEPS ``make_train_step`` steps
+    (AdamW, warmup 1) on data made from ``seed`` (``gnn_data``): step ms,
+    molecules/s or nodes/s, peak bytes, the losses (finite, changing), a
+    profiled step, no kernel launched; the first step's loss and
+    gradients against the port's CPU path on the same parameters and
+    batch (``gnn_vs_cpu``; ogb_products on its first 2^20 edges)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    arch = get_arch("schnet")
+    base = arch.config()
+    require((base.n_interactions, base.d_hidden, base.n_rbf, base.cutoff,
+             base.compute_dtype) == (3, 64, 300, 10.0, torch.float32),
+            f"schnet: config {base}")
+    for shape in GNN_CELLS:
+        t0 = time.perf_counter()
+        cfg = steps.adapt_config(arch, shape, base)
+        batches, check_batch, data = gnn_data(shape, cfg, seed)
+        data_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        params = steps.init_fn(arch, shape, cfg, device=dev)(seed)
+        lfn = steps.loss_fn(arch, shape, cfg)
+        check = gnn_vs_cpu(lfn, params, check_batch, dev)
+        torch.cuda.empty_cache()
+        state = {"params": params, "opt": adamw_init(params)}
+        step = steps.make_train_step(arch, shape, cfg, opt_cfg=AdamWConfig(
+            warmup_steps=1, total_steps=GNN_STEPS))
+        on_card = {}
+        reset_model_launches()
+        losses, step_ms, sizes = [], [], []
+        for b in batches:
+            if id(b) not in on_card:
+                on_card[id(b)] = tree_to(b, dev)
+            batch = on_card[id(b)]
+            (state, metrics), ms = synced_ms(lambda: step(state, batch))
+            losses.append(float(metrics["loss"]))
+            step_ms.append(ms)
+            sizes.append({"nodes": int((batch["z"] if "z" in batch
+                                        else batch["x"]).shape[0]),
+                          "edges": int(batch["edge_src"].numel())})
+        launches = model_launches()
+        peak = torch.cuda.max_memory_allocated()
+        require(all(math.isfinite(v) for v in losses)
+                and all(a != b for a, b in zip(losses, losses[1:])),
+                f"train_gnn {shape}: losses {losses} not finite and changing")
+        require(launches["flash_attention"] == 0
+                and launches["embedding_bag"] == 0,
+                f"train_gnn {shape}: the train step launched {launches}")
+        prof = profile_call(lambda: step(state, batch), warm=False)
+        ms = statistics.median(step_ms[1:])
+        rate = ({"molecules_per_s": sizes[-1]["nodes"] / ms * 1e3}
+                if shape == "molecule" else
+                {"nodes_per_s": statistics.median(
+                    s["nodes"] for s in sizes[1:]) / ms * 1e3})
+        reduced = []
+        if shape == "minibatch_lg":
+            reduced.append(f"the sampler's store holds {GNN_REDDIT_EDGES} "
+                           f"of Reddit's 114,615,892 edges (a quarter: its "
+                           f"build is host time; the edge count shapes only "
+                           f"the sampled degrees)")
+        if shape == "ogb_products":
+            reduced.append(f"{GNN_OGB_EDGES} (2^23) of its 61,859,140 edges "
+                           f"(~4.5 KB an edge kept for the backward pass: "
+                           f"~280 GB for the whole graph); the CPU check on "
+                           f"its first {GNN_CHECK_EDGES} edges")
+        emit("train_gnn", shape=shape, arch="schnet", source=arch.source,
+             config={"n_interactions": cfg.n_interactions,
+                     "d_hidden": cfg.d_hidden, "n_rbf": cfg.n_rbf,
+                     "cutoff": cfg.cutoff, "d_feat": cfg.d_feat,
+                     "n_out": cfg.n_out, "n_atom_types": cfg.n_atom_types,
+                     "compute_dtype": str(cfg.compute_dtype)},
+             params=cfg.param_count(), data=data, sizes=sizes,
+             data_seconds=data_s,
+             optimizer="AdamW (lr 3e-4, warmup 1, cosine over 3 steps)",
+             step_ms=step_ms, median_step_ms=ms, **rate, losses=losses,
+             peak_device_bytes=peak, launches=launches, profile=prof,
+             vs_cpu=check, reduced=reduced, nvidia_smi=smi)
+        del state, params, metrics, step, batch, on_card, batches, check_batch
+        torch.cuda.empty_cache()
+    emit("train_gnn", step="summary", seconds=time.perf_counter() - t_phase,
+         nvidia_smi=smi)
+
+
+# --------------------------------------------------------------------------
+# placement: the elastic re-shard and the sharded top-k on an NCCL rank
+# --------------------------------------------------------------------------
+
+PLACE_ROUNDS, PLACE_RUNS = 10, 5
+
+
+def phase_placement(seed: int, dev, smi: str) -> dict:
+    """two-tower-retrieval at full width on an NCCL process group of one
+    rank (NCCL takes one rank per card): its parameters saved as a
+    checkpoint and restored onto a 1 x 1 ("data", "model") mesh as
+    DTensors laid out by ``param_shardings(..., "tp")``, every leaf equal
+    to the saved one; then ``make_serve_step(..., mesh=,
+    sharded_topk=True)`` on retrieval_cand (1,000,448 candidates, K5 in
+    the user tower): values and indices bit-equal to the unsharded step's
+    on the same inputs, K5 launches counted; ms per step of both (median
+    of PLACE_ROUNDS alternating rounds of PLACE_RUNS steps) and a
+    profiled step of each. More ranks run only on gloo on the CPU
+    (tests/test_torch_placement.py)."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import param_shardings, placements
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    arch = get_arch("two-tower-retrieval")
+    cfg = arch.config()
+    params = steps.init_fn(arch, "retrieval_cand", cfg, device=dev)(seed)
+    inputs = cell_inputs(arch, "retrieval_cand", cfg, seed, dev)
+    plain = steps.make_serve_step(arch, "retrieval_cand", cfg)
+    runs = PLACE_RUNS
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            tmp + "/store", 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1)
+            specs = param_shardings("recsys", cfg, mesh, params, "tp")
+            t0 = time.perf_counter()
+            checkpoint.save(tmp + "/ckpt", 0, params)
+            t1 = time.perf_counter()
+            placed = checkpoint.restore(tmp + "/ckpt", 0, params,
+                                        shardings=specs, mesh=mesh)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            layouts = {}
+            for (name, got), want, spec in zip(
+                    tree.leaves_with_paths(placed), tree.leaves(params),
+                    tree.leaves_up_to(params, specs)):
+                require(isinstance(got, DTensor) and got.device == want.device
+                        and got.placements == placements(spec, mesh)
+                        and torch.equal(got.to_local(), want),
+                        f"placement: {name} restored as {type(got)} "
+                        f"{getattr(got, 'placements', None)}")
+                layouts[name] = repr(spec)
+            sharded = steps.make_serve_step(arch, "retrieval_cand", cfg,
+                                            mesh=mesh, sharded_topk=True)
+            want = plain(params, *inputs.values())          # warm-up runs
+            sharded(placed, *inputs.values())
+            reset_model_launches()
+            got = [sharded(placed, *inputs.values()) for _ in range(runs)][-1]
+            launches = model_launches()
+            fns = {"sharded_topk": lambda: sharded(placed, *inputs.values()),
+                   "unsharded": lambda: plain(params, *inputs.values())}
+            ms = {k: [] for k in fns}
+            for r in range(PLACE_ROUNDS):              # alternating order
+                for k in (sorted(fns) if r % 2 else sorted(fns)[::-1]):
+                    ms[k].append(synced_ms(lambda: [
+                        fns[k]() for _ in range(runs)])[1] / runs)
+            prof = {k: profile_call(f) for k, f in fns.items()}
+        finally:
+            dist.destroy_process_group()
+    require(launches["embedding_bag"] == runs,
+            f"placement: K5 launched {launches['embedding_bag']} times in "
+            f"{runs} sharded steps")
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "placement: the sharded top-k differs from the unsharded step")
+    emit("placement", arch="two-tower-retrieval", shape="retrieval_cand",
+         backend="nccl", world_size=1, mesh={"data": 1, "model": 1},
+         n_cand=int(inputs["cand_emb"].shape[0]),
+         checkpoint_bytes=tree_bytes(params), save_seconds=t1 - t0,
+         restore_seconds=t2 - t1, layouts=layouts,
+         ms_per_step={k: statistics.median(v) for k, v in ms.items()},
+         ms_per_step_range={k: [min(v), max(v)] for k, v in ms.items()},
+         rounds=PLACE_ROUNDS, runs=runs, launches=launches, profile=prof,
+         check="values and indices bit-equal to the unsharded step; every "
+               "restored leaf a DTensor of its spec's placements equal to "
+               "the saved tensor",
+         multi_rank="gloo ranks on the CPU only (tests)",
+         seconds=time.perf_counter() - t_phase, nvidia_smi=smi)
+    del params, placed, inputs
+    torch.cuda.empty_cache()
+    return {"embedding_bag": launches["embedding_bag"]}
 
 
 # The deterministic crash-and-resume run of the sparse encoder, in a child
@@ -3805,10 +4122,13 @@ def main() -> int:
     phase_train_lm(args.seed, dev, smi)
     torch.cuda.empty_cache()
     phase_train_cli(smi, dev)
+    phase_train_gnn(args.seed, dev, smi)
+    torch.cuda.empty_cache()
     enc = phase_sparse_encoder(smi, dev)
     torch.cuda.empty_cache()
     launcher_launches = phase_launcher(smi)
     rec = phase_recsys(args.seed, dev)
+    placed = phase_placement(args.seed, dev, smi)
     sweep = phase_model_kernels(dev)
     model_main = {"flash_attention": lm["main"]["prefill"],
                   "embedding_bag": rec["main"]["dlrm-rm2"]}
@@ -3874,7 +4194,9 @@ def main() -> int:
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "at": m["shape"],
             "other": {k: {f: o[f] for f in timed if f in o}
-                      for k, o in model_other[name].items()}})
+                      for k, o in model_other[name].items()},
+            **({"placement_launches": placed[name]} if name in placed
+               else {})})
         require(model_counts[name] > 0, f"{name} never launched on its path")
     # K6 by route: mma at prefill (and bert4rec), split at decode, f32 at
     # the float32 prefill and decode

@@ -12,8 +12,9 @@ eigenvector signs, and the order of near-equal eigenvalues, differ between
 convert, e.g. ``{f.name: np.asarray(getattr(idx, f.name)) for f in
 dataclasses.fields(idx)}``.
 
-The models' state is their parameters. ``transformer_params_from_arrays``
-and ``recsys_params_from_arrays`` take the reference's parameter tree with
+The models' state is their parameters. ``transformer_params_from_arrays``,
+``recsys_params_from_arrays`` and ``schnet_params_from_arrays`` take the
+reference's parameter tree with
 numpy leaves (``jax.tree_util.tree_map(np.asarray, params)``) and return
 the port's: the port keeps the reference's layout (layers stacked
 ``[L, ...]``, weights applied as ``x @ W``, MLP layers as lists of
@@ -30,6 +31,7 @@ from .core.index import (TENSOR_FIELDS, BlockedImpactIndex, index_from_layout,
                          resolve_device)
 from .index.compressed import index_from_fields
 from .retrieval.hybrid import HybridIndex
+from .models import schnet as S
 from .models import transformer as T
 
 SCALAR_FIELDS = ("n_docs", "n_terms", "tile_size", "n_tiles", "pad_len")
@@ -116,19 +118,36 @@ def transformer_params_from_arrays(cfg: T.TransformerConfig, tree: dict,
     return params
 
 
+def _count(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_count(v) for v in tree)
+    return tree.numel()
+
+
+def schnet_params_from_arrays(cfg: S.SchNetConfig, tree: dict,
+                              device="cuda") -> dict:
+    """The port's SchNet parameters on ``device`` from the reference's tree
+    of numpy arrays (interactions stacked under ``"inters"``); raises
+    unless its shapes are ``cfg``'s and it holds ``cfg.param_count()``
+    values."""
+    params = _tree_to_torch(tree, resolve_device(device))
+    if _shapes(params) != S.param_shapes(cfg):
+        raise ValueError(f"parameter shapes {_shapes(params)} are not those "
+                         f"of the config: {S.param_shapes(cfg)}")
+    if _count(params) != cfg.param_count():
+        raise ValueError(f"{_count(params)} parameters, the config has "
+                         f"{cfg.param_count()}")
+    return params
+
+
 def recsys_params_from_arrays(cfg, tree: dict, device="cuda") -> dict:
     """The port's parameters of a recsys model (DLRM, DIN, two-tower or
     BERT4Rec config ``cfg``) on ``device`` from the reference's tree of
     numpy arrays; raises unless they hold ``cfg.param_count()`` values."""
     params = _tree_to_torch(tree, resolve_device(device))
-
-    def count(t):
-        if isinstance(t, dict):
-            return sum(count(v) for v in t.values())
-        if isinstance(t, list):
-            return sum(count(v) for v in t)
-        return t.numel()
-    if count(params) != cfg.param_count():
-        raise ValueError(f"{count(params)} parameters, the config has "
+    if _count(params) != cfg.param_count():
+        raise ValueError(f"{_count(params)} parameters, the config has "
                          f"{cfg.param_count()}")
     return params

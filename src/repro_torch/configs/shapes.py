@@ -1,8 +1,9 @@
-"""The shape cells of the LM and recsys families, as plain dicts.
+"""The shape cells of the LM, GNN and recsys families, as plain dicts.
 
 ``kind`` says which step a cell runs (train, prefill, decode, serve,
-retrieval); the sizes are the full cells' batch, sequence, shortlist and
-candidate counts.
+retrieval; the GNN's gnn_full, gnn_sampled and gnn_mol are train cells);
+the sizes are the full cells' batch, sequence, shortlist and candidate
+counts, and the graphs' node, edge, feature and class counts.
 """
 from __future__ import annotations
 
@@ -11,6 +12,18 @@ LM_SHAPE_DEFS = {
     "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
     "decode_32k": dict(kind="decode", seq=32768, batch=128),
     "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+GNN_SHAPE_DEFS = {
+    # (nodes, edges, d_feat, n_classes, replicate)
+    "full_graph_sm": dict(kind="gnn_full", nodes=2708, edges=10556,
+                          d_feat=1433, classes=7, pad=1),  # replicated
+    # Reddit-scale sampled training: 1024 seeds x fanout 15 -> x10
+    "minibatch_lg": dict(kind="gnn_sampled", nodes=169984, edges=168960,
+                         d_feat=602, classes=41, pad=512),
+    "ogb_products": dict(kind="gnn_full", nodes=2449029, edges=61859140,
+                         d_feat=100, classes=47, pad=512),
+    "molecule": dict(kind="gnn_mol", batch=128, atoms=30, edges=64),
 }
 
 RECSYS_SHAPE_DEFS = {

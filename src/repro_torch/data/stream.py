@@ -13,7 +13,7 @@ import torch
 from ..core.index import resolve_device
 
 
-def _on(device, **arrays) -> dict:
+def to_device(device, **arrays) -> dict:
     """Each array as a tensor on ``device``: integers int32, floats
     float32 (the reference's dtypes without 64-bit mode)."""
     dev = resolve_device(device)
@@ -22,13 +22,14 @@ def _on(device, **arrays) -> dict:
         device=dev) for k, a in arrays.items()}
 
 
+
 def lm_batch(step: int, *, batch: int, seq: int, vocab: int, seed: int = 0,
              zipf_a: float = 1.2, device="cuda") -> dict:
     """Zipf-distributed synthetic token stream (LM pretraining proxy)."""
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
     ranks = rng.zipf(zipf_a, size=(batch, seq + 1))
     toks = np.minimum(ranks, vocab - 1).astype(np.int32)
-    return _on(device, tokens=toks[:, :-1], targets=toks[:, 1:])
+    return to_device(device, tokens=toks[:, :-1], targets=toks[:, 1:])
 
 
 def pair_batch(step: int, *, batch: int, seq: int, vocab: int,
@@ -43,23 +44,25 @@ def pair_batch(step: int, *, batch: int, seq: int, vocab: int,
                                                   (batch, seq - n_rel_terms))],
                            1)
     d_neg = rng.integers(1, vocab, size=(batch, seq))
-    return _on(device, query=q, doc_pos=d_pos, doc_neg=d_neg)
+    return to_device(device, query=q, doc_pos=d_pos, doc_neg=d_neg)
 
 
 def recsys_batch(step: int, *, kind: str, cfg, batch: int, seed: int = 0,
                  device="cuda") -> dict:
     rng = np.random.default_rng(np.random.SeedSequence([seed, step, 2]))
     if kind == "dlrm":
-        return _on(device,
-                   dense=rng.standard_normal((batch, cfg.n_dense)),
-                   sparse=rng.integers(0, cfg.vocab_per_field,
-                                       (batch, cfg.n_sparse, cfg.multi_hot)),
-                   label=rng.integers(0, 2, batch))
+        return to_device(device,
+                         dense=rng.standard_normal((batch, cfg.n_dense)),
+                         sparse=rng.integers(
+                             0, cfg.vocab_per_field,
+                             (batch, cfg.n_sparse, cfg.multi_hot)),
+                         label=rng.integers(0, 2, batch))
     if kind == "din":
-        return _on(device,
-                   hist=rng.integers(0, cfg.n_items, (batch, cfg.seq_len)),
-                   target=rng.integers(0, cfg.n_items, batch),
-                   label=rng.integers(0, 2, batch))
+        return to_device(device,
+                         hist=rng.integers(0, cfg.n_items,
+                                           (batch, cfg.seq_len)),
+                         target=rng.integers(0, cfg.n_items, batch),
+                         label=rng.integers(0, 2, batch))
     raise ValueError(kind)
 
 
@@ -143,4 +146,5 @@ def molecule_batch(step: int, *, batch: int, atoms: int, edges: int,
     d = np.linalg.norm(pos[np.arange(batch)[:, None], es]
                        - pos[np.arange(batch)[:, None], ed], axis=-1)
     energy = (np.exp(-d) - 0.1 * d).sum(1).astype(np.float32)
-    return _on(device, z=z, pos=pos, edge_src=es, edge_dst=ed, energy=energy)
+    return to_device(device, z=z, pos=pos, edge_src=es, edge_dst=ed,
+                     energy=energy)

@@ -3,29 +3,37 @@
 The port of ``repro.launch.steps``. Train steps: ``make_train_step`` maps
 a state {"params", "opt"} and a batch to (state, metrics), AdamW on the
 gradients of ``loss_fn``; the losses differentiate through plain torch
-attention and bags (``transformer.scores_attention``,
-``sparse_ops.gather_embedding_bag``), never through a kernel. Serve steps:
-``make_serve_step`` returns, per family: for the LMs, dense and MoE,
-prefill (prompt -> last logits and a KV cache) and decode (one token
-against the cache); for each recsys model, its ``serve`` step (a batch of
-requests, or requests x a shortlist) and its ``retrieval`` step (one
-query against a candidate set, top-100), through the kernels.
-``state_specs``, ``make_serve_step``'s ``mesh=`` / ``sharded_topk=`` and
-the GNN family are not ported yet.
+attention, bags and scatters (``transformer.scores_attention``,
+``sparse_ops.gather_embedding_bag``, SchNet's ``index_add``), never
+through a kernel. SchNet's cells are train cells only: its molecule cell
+trains on energies, its graph cells (``adapt_config`` sets their feature
+width and classes) on node labels. Serve steps: ``make_serve_step``
+returns, per family: for the LMs, dense and MoE, prefill (prompt -> last
+logits and a KV cache) and decode (one token against the cache); for each
+recsys model, its ``serve`` step (a batch of requests, or requests x a
+shortlist) and its ``retrieval`` step (one query against a candidate set,
+top-100), through the kernels. The two-tower retrieval step also runs
+over a mesh (``mesh=``, ``sharded_topk=True``): each rank scores its
+contiguous slice of the candidates. ``state_specs`` is not ported yet.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from ..configs.base import ArchSpec
-from ..configs.shapes import LM_SHAPE_DEFS, RECSYS_SHAPE_DEFS
+from ..configs.shapes import GNN_SHAPE_DEFS, LM_SHAPE_DEFS, RECSYS_SHAPE_DEFS
 from ..core.index import resolve_device
 from ..models import recsys as R
+from ..models import schnet as S
 from ..models import transformer as T
 from ..sparse_ops import embedding_bag
 from ..train.optimizer import AdamWConfig
 from ..train.trainer import train_step
+from ..tree import tree_map
 
 TOPK_SERVE = 100
 
@@ -39,8 +47,13 @@ def _topk(scores, k=TOPK_SERVE):
 
 
 def adapt_config(arch: ArchSpec, shape: str, cfg=None):
-    """Per-shape config adjustments (only the GNN family has any)."""
-    return cfg if cfg is not None else arch.config()
+    """Per-shape config adjustments (SchNet graph-mode d_feat/classes)."""
+    cfg = cfg if cfg is not None else arch.config()
+    if arch.family == "gnn" and shape != "molecule":
+        d = GNN_SHAPE_DEFS[shape]
+        return dataclasses.replace(cfg, d_feat=d["d_feat"],
+                                   n_out=d["classes"])
+    return cfg
 
 
 def init_fn(arch: ArchSpec, shape: str, cfg, device="cuda"):
@@ -49,6 +62,8 @@ def init_fn(arch: ArchSpec, shape: str, cfg, device="cuda"):
     dev = resolve_device(device)
     if arch.family == "lm":
         init = T.init_params
+    elif arch.family == "gnn":
+        init = S.init_params
     elif isinstance(cfg, R.DLRMConfig):
         init = R.init_dlrm
     elif isinstance(cfg, R.DINConfig):
@@ -67,9 +82,10 @@ def loss_fn(arch: ArchSpec, shape: str, cfg, rules: T.Rules = T.NO_RULES):
     """``(params, batch) -> scalar loss`` of the arch's family."""
     if arch.family == "lm":
         return lambda p, b: T.lm_loss(cfg, p, b, rules)
-    if arch.family != "recsys":
-        raise NotImplementedError(f"the {arch.family} family is not ported "
-                                  f"to repro_torch yet")
+    if arch.family == "gnn":
+        if shape == "molecule":
+            return lambda p, b: S.molecule_loss(cfg, p, b)
+        return lambda p, b: S.node_loss(cfg, p, b)
     if isinstance(cfg, R.DLRMConfig):
         return lambda p, b: R.dlrm_loss(cfg, p, b, rules)
     if isinstance(cfg, R.DINConfig):
@@ -116,11 +132,128 @@ def _dlrm_score_candidates(cfg, params, user, cand_ids, rules):
     return R._mlp(params["top"], top_in)[:, 0]
 
 
+def _mesh_index(mesh, dims) -> int:
+    """This rank's index over the mesh dims ``dims``, read major to
+    minor (the order DTensor and the reference's specs shard in)."""
+    flat, coord = 0, mesh.get_coordinate()
+    for d in dims:
+        flat = flat * mesh.shape[d] + coord[d]
+    return flat
+
+
+def _split_dims(x) -> list:
+    """The mesh dims over which a DTensor is split (a placement other than
+    ``Replicate`` on a dim of more than one rank)."""
+    mesh = x.device_mesh
+    return [d for d, p in enumerate(x.placements)
+            if not p.is_replicate() and mesh.shape[d] > 1]
+
+
+def _full(x):
+    """A DTensor's whole value (gathered, unless no dim is split), or
+    ``x`` itself."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return x.full_tensor() if _split_dims(x) else x.to_local()
+
+
+def _table_rows(table, ids):
+    """``table[ids]`` for a tensor or a DTensor ``table``. A DTensor split
+    evenly on its rows (``Shard(0)`` on the mesh dims that split it) is
+    not gathered: each rank reads the rows it holds, zeros for the others,
+    and an all-reduce over the splitting dims adds the parts; every row
+    comes from one rank, so the sum is exact."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    mesh, local, dims = table.device_mesh, table.to_local(), _split_dims(table)
+    if not dims:
+        return local[ids.long()]
+    if table.shape[0] % math.prod(mesh.shape[d] for d in dims) or any(
+            table.placements[d] != Shard(0) for d in dims):
+        return table.full_tensor()[ids.long()]
+    idx = ids.long() - _mesh_index(mesh, dims) * local.shape[0]
+    mine = (idx >= 0) & (idx < local.shape[0])
+    rows = torch.where(mine[..., None],
+                       local[idx.clamp(0, local.shape[0] - 1)], 0)
+    for d in dims:
+        dist.all_reduce(rows, group=mesh.get_group(d))
+    return rows
+
+
+def _user_vector(cfg, rules, params, user_feats):
+    """The two-tower user vector [D] of one request, its parameters
+    possibly DTensors: the bag runs over the request's own rows of
+    ``user_embed`` (``_table_rows``; row 0 first, the padding id's), with
+    the ids renumbered into them, so it adds the same values in the same
+    order as over the whole table."""
+    n = user_feats.numel()
+    rows = _table_rows(params["user_embed"], torch.cat([
+        user_feats.new_zeros(1), user_feats.reshape(-1)]))
+    local = torch.arange(1, n + 1, dtype=user_feats.dtype,
+                         device=user_feats.device).view(user_feats.shape)
+    user = {"user_embed": rows,
+            "user_tower": tree_map(_full, params["user_tower"])}
+    return R.user_encode(cfg, user, torch.where(user_feats > 0, local, 0),
+                         rules)[0]
+
+
+
+
+def _mesh_gather(x, mesh):
+    """Every rank's ``x`` concatenated on dim 0 in flat-rank order: stacked
+    over the minor axis first, then over each axis above it."""
+    from ..dist.collectives import ring_gather_stack
+    for dim in reversed(range(mesh.ndim)):
+        x = ring_gather_stack(x, mesh.get_group(dim)).flatten(0, 1)
+    return x
+
+
+def _two_tower_sharded_topk(cfg, rules, mesh):
+    """The two-tower retrieval step over ``mesh``: rank r (flat, major to
+    minor) scores candidate rows [r * n / R, (r + 1) * n / R) against the
+    user vector, takes its local top-min(100, n / R), offsets the indices
+    by its first row, and every rank merges the gathered lists into the
+    global top-100. ``cand_emb`` is the whole [n, D] tensor (each rank
+    slices its rows) or a DTensor sharded on dim 0 over every mesh axis
+    (its local rows are used); parameters may be DTensors
+    (``_user_vector``). Returns what the unsharded step returns on the
+    same inputs: values and global row indices, ties to the lower row."""
+    from torch.distributed.tensor import DTensor
+    n_shards = mesh.size()
+
+    def step(params, user_feats, cand_emb):
+        u = _user_vector(cfg, rules, params, user_feats)
+        rank = _mesh_index(mesh, range(mesh.ndim))
+        n = cand_emb.shape[0]
+        if n % n_shards:
+            raise ValueError(f"{n} candidates do not split evenly over "
+                             f"{n_shards} ranks")
+        local_n = n // n_shards
+        local = (cand_emb.to_local() if isinstance(cand_emb, DTensor)
+                 else cand_emb[rank * local_n:(rank + 1) * local_n])
+        if local.shape[0] != local_n:
+            raise ValueError(f"rank {rank} holds {local.shape[0]} candidate "
+                             f"rows, expected {local_n}")
+        v, i = _topk((local.to(u.dtype) @ u).float(),
+                     min(TOPK_SERVE, local_n))
+        v, i = _mesh_gather(v, mesh), _mesh_gather(i + rank * local_n, mesh)
+        tv, ti = _topk(v)
+        return tv, i[ti]
+    return step
+
+
 def make_serve_step(arch: ArchSpec, shape: str, cfg,
-                    rules: T.Rules = T.NO_RULES, *, max_len: int | None = None):
+                    rules: T.Rules = T.NO_RULES, *, max_len: int | None = None,
+                    mesh=None, sharded_topk: bool = False):
     """The serve step of (arch, shape) for ``cfg``. An LM prefill step
     builds a cache of the cell's sequence length, or of ``max_len`` when
-    given (a cut of depth)."""
+    given (a cut of depth). With a ``DeviceMesh`` and ``sharded_topk``,
+    the two-tower retrieval step scores the candidates sharded over the
+    mesh's ranks (``_two_tower_sharded_topk``); otherwise ``mesh`` is not
+    used."""
     if arch.family == "lm":
         kind = LM_SHAPE_DEFS[shape]["kind"]
         if kind == "prefill":
@@ -135,9 +268,8 @@ def make_serve_step(arch: ArchSpec, shape: str, cfg,
                                      rules)
             return step
         raise ValueError(f"no serve step for LM shape {shape}")
-    if arch.family != "recsys":
-        raise NotImplementedError(f"the {arch.family} family is not ported "
-                                  f"to repro_torch yet")
+    if arch.family == "gnn":
+        raise ValueError("GNN cells are train-step cells")
     kind = RECSYS_SHAPE_DEFS[shape]["kind"]
     if kind not in ("serve", "retrieval"):
         raise ValueError(f"no serve step for recsys shape {shape}")
@@ -170,6 +302,8 @@ def make_serve_step(arch: ArchSpec, shape: str, cfg,
                 v = R.item_encode(cfg, params, shortlist, rules)
                 return u @ v.T
             return tt_serve
+        if sharded_topk and mesh is not None:
+            return _two_tower_sharded_topk(cfg, rules, mesh)
 
         def tt_retr(params, user_feats, cand_emb):
             return _topk(R.two_tower_score_candidates(cfg, params,
@@ -218,9 +352,23 @@ def smoke_batch(arch: ArchSpec, shape: str, cfg, seed: int = 0,
             return {"tokens": t(toks[:, :-1])}
         cache = T.init_cache(cfg, b, s, dev)
         return {"token": t(toks[:, :1]), "cache": cache, "cache_len": s - 1}
-    if arch.family != "recsys":
-        raise NotImplementedError(f"the {arch.family} family is not ported "
-                                  f"to repro_torch yet")
+    if arch.family == "gnn":
+        if shape == "molecule":
+            b, n, e = 4, 8, 16
+            return {"batch": {
+                "z": t(rng.integers(1, cfg.n_atom_types, (b, n))),
+                "pos": t(rng.standard_normal((b, n, 3)), f32),
+                "edge_src": t(rng.integers(0, n, (b, e))),
+                "edge_dst": t(rng.integers(0, n, (b, e))),
+                "energy": t(rng.standard_normal(b), f32)}}
+        nn, ee = 64, 256
+        return {"batch": {
+            "x": t(rng.standard_normal((nn, cfg.d_feat)), f32),
+            "edge_src": t(rng.integers(0, nn, ee)),
+            "edge_dst": t(rng.integers(0, nn, ee)),
+            "edge_dist": t(rng.random(ee) * cfg.cutoff, f32),
+            "labels": t(rng.integers(0, cfg.n_out, nn)),
+            "train_mask": torch.ones(nn, dtype=f32, device=dev)}}
     kind = RECSYS_SHAPE_DEFS[shape]["kind"]
     b = 8
     if isinstance(cfg, R.DLRMConfig):

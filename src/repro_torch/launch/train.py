@@ -10,8 +10,9 @@ fault-tolerant ``Trainer`` (checkpoints and ``metrics.jsonl`` under
 ``--out``, default ``runs/<arch>``; a rerun resumes from the latest
 checkpoint). ``--device`` (default ``cuda``) holds the parameters, the
 optimizer state and every batch; asking for CUDA without a GPU exits with
-an error. ``schnet`` is registered by the reference and not ported: it
-raises.
+an error. ``--arch schnet`` trains its ``molecule`` cell by default
+(``--shape full_graph_sm`` and the other graph cells train on 64-seed
+subgraphs sampled from a 2048-node ``GraphStore``, as the reference's).
 """
 from __future__ import annotations
 
@@ -20,14 +21,24 @@ import argparse
 
 def data_provider(arch, shape, cfg, batch_size, device="cuda"):
     """``step -> batch`` of the arch's family on ``device``: the reference's
-    streams (LM: Zipf tokens, 64 a row; DLRM and DIN: ``recsys_batch``;
-    two-tower and BERT4Rec: ``smoke_batch`` seeded by the step)."""
-    from ..data.stream import lm_batch, recsys_batch
+    streams (LM: Zipf tokens, 64 a row; SchNet: ``molecule_batch`` of 8
+    atoms and 16 edges, or a 64-seed subgraph of a 2048-node
+    ``GraphStore``; DLRM and DIN: ``recsys_batch``; two-tower and
+    BERT4Rec: ``smoke_batch`` seeded by the step)."""
+    from ..data.stream import (GraphStore, lm_batch, molecule_batch,
+                               recsys_batch, to_device)
     from ..models import recsys as R
     from .steps import smoke_batch
     if arch.family == "lm":
         return lambda step: lm_batch(step, batch=batch_size, seq=64,
                                      vocab=cfg.vocab, device=device)
+    if arch.family == "gnn":
+        if shape == "molecule":
+            return lambda step: molecule_batch(
+                step, batch=batch_size, atoms=8, edges=16,
+                n_types=cfg.n_atom_types, device=device)
+        store = GraphStore(2048, 8192, cfg.d_feat, cfg.n_out)
+        return lambda step: to_device(device, **store.sample(step, 64))
     if isinstance(cfg, R.DLRMConfig):
         return lambda step: recsys_batch(step, kind="dlrm", cfg=cfg,
                                          batch=batch_size, device=device)
@@ -49,14 +60,13 @@ def main(argv=None) -> dict:
     import torch
 
     from ..configs import ARCH_IDS, get_arch
-    from ..configs.registry import NOT_PORTED
     from ..models.transformer import NO_RULES
     from ..train.optimizer import AdamWConfig
     from ..train.trainer import Trainer, TrainerConfig
     from .steps import adapt_config, init_fn, loss_fn
 
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
-    ap.add_argument("--arch", required=True, choices=ARCH_IDS + NOT_PORTED)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

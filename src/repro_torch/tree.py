@@ -30,6 +30,20 @@ def leaves(tree) -> list:
     return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
+def leaves_up_to(like, sub) -> list:
+    """The subtrees of ``sub`` (a tree of ``like``'s structure down to
+    ``like``'s leaves, which may hold tuples there, as specs) at the
+    places of ``like``'s leaves, in visiting order."""
+    if isinstance(like, dict):
+        return [x for key in sorted(like)
+                for x in leaves_up_to(like[key], sub[key])]
+    if isinstance(like, (list, tuple)):
+        if len(like) != len(sub):
+            raise ValueError("trees of different structure")
+        return [x for a, b in zip(like, sub) for x in leaves_up_to(a, b)]
+    return [sub]
+
+
 def unflatten(like, new_leaves) -> object:
     """A tree of ``like``'s structure holding ``new_leaves`` in visiting
     order; raises unless their number is ``like``'s."""

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions, and
-searches and model serve steps on the card against the same on the CPU.
+searches, model serve steps, train steps (SchNet included) and the
+sharded two-tower top-k on one NCCL rank on the card against the same
+on the CPU.
 
 Marked ``cuda``: without a CUDA device every test skips (the decision is
 made in the ``cuda`` fixture, at run time). This file imports neither JAX
@@ -1141,3 +1143,76 @@ def test_train_step_on_card_matches_cpu_and_runs_no_kernel(cuda, arch_id):
     assert np.isfinite(float(metrics["loss"]))
     assert fa.launches == 0 and eb.launches == 0
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", ["molecule", "full_graph_sm",
+                                   "ogb_products"])
+def test_schnet_train_step_on_card_matches_cpu(cuda, shape):
+    """A smoke SchNet train step on the card (molecule mode, graph mode):
+    loss within rtol 1e-5 and every gradient leaf within 1e-4 max|cpu| +
+    1e-6 of the same on the CPU (the card's scatter adds in atomic order,
+    the CPU's in edge order); then three ``make_train_step`` steps on the
+    card, the losses finite and changing, no kernel launched."""
+    from repro_torch import tree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    arch = get_arch("schnet")
+    cfg = steps.adapt_config(arch, shape, arch.smoke())
+    params = steps.init_fn(arch, shape, cfg, device="cpu")(0)
+    batch = steps.smoke_batch(arch, shape, cfg, device="cpu")["batch"]
+    lfn = steps.loss_fn(arch, shape, cfg)
+    loss_cpu, g_cpu = tree.value_and_grad(lfn, params, batch)
+    card_params, card_batch = _on(params, cuda), _on(batch, cuda)
+    fa.reset_launches()
+    eb.reset_launches()
+    loss_card, g_card = tree.value_and_grad(lfn, card_params, card_batch)
+    torch.testing.assert_close(loss_card.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for a, b in zip(tree.leaves(g_card), tree.leaves(g_cpu)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-6)
+    state = {"params": card_params, "opt": adamw_init(card_params)}
+    step = steps.make_train_step(arch, shape, cfg, opt_cfg=AdamWConfig(
+        warmup_steps=1, total_steps=10))
+    losses = []
+    for _ in range(3):
+        state, metrics = step(state, card_batch)
+        losses.append(float(metrics["loss"]))
+    assert np.isfinite(losses).all() and len(set(losses)) == 3
+    assert fa.launches == 0 and eb.launches == 0
+
+
+def test_sharded_topk_nccl_world_one_equals_unsharded(cuda, tmp_path):
+    """The two-tower retrieval step on a 1 x 1 ("data", "model") mesh of an
+    NCCL group of one rank, its parameters restored from a checkpoint as
+    DTensors by ``param_shardings(..., "tp")``: values and indices
+    bit-equal to the unsharded step's on the same inputs, through K5."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.dist.sharding import param_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import checkpoint
+    arch = get_arch("two-tower-retrieval")
+    cfg = arch.smoke()
+    params = steps.init_fn(arch, "retrieval_cand", cfg, device=cuda)(0)
+    batch = _on(steps.smoke_batch(arch, "retrieval_cand", cfg,
+                                  device="cpu"), cuda)
+    want = steps.make_serve_step(arch, "retrieval_cand", cfg)(
+        params, *batch.values())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        checkpoint.save(tmp_path / "ck", 0, params)
+        placed = checkpoint.restore(
+            tmp_path / "ck", 0, params, mesh=mesh,
+            shardings=param_shardings("recsys", cfg, mesh, params, "tp"))
+        assert isinstance(placed["user_embed"], DTensor)
+        assert placed["user_embed"].device.type == "cuda"
+        eb.reset_launches()
+        got = steps.make_serve_step(arch, "retrieval_cand", cfg, mesh=mesh,
+                                    sharded_topk=True)(placed,
+                                                       *batch.values())
+        assert eb.launches == 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        dist.destroy_process_group()

@@ -294,8 +294,11 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     decode step (dense and MoE) and a smoke DLRM serve step, and serves a
     stream through the launcher (``repro_torch.launch.serve.main``), runs
     a smoke LM ``make_train_step``, a 4-step ``Trainer`` that fails at step
-    3 and resumes from its step-2 checkpoint, and trains through the
-    training launcher (``repro_torch.launch.train.main``)."""
+    3 and resumes from its step-2 checkpoint, trains through the
+    training launcher (``repro_torch.launch.train.main``), runs a smoke
+    SchNet train step (molecule and graph), reads the placement rules
+    (``repro_torch.dist.sharding``) on a 4 x 2 mesh's shape, and runs the
+    sharded two-tower top-k on a ``make_mesh(1, 1)`` gloo mesh."""
     script = textwrap.dedent("""
         import sys
 
@@ -485,6 +488,51 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
                                        "--out", d + "/cli",
                                        "--device", "cpu"])
             assert len(res["losses"]) == 3
+
+        arch = get_arch("schnet")
+        for shape in ("molecule", "ogb_products"):
+            cfg = steps.adapt_config(arch, shape, arch.smoke())
+            params = steps.init_fn(arch, shape, cfg, device="cpu")(0)
+            batch = steps.smoke_batch(arch, shape, cfg, device="cpu")
+            state, m = steps.make_train_step(arch, shape, cfg)(
+                {"params": params, "opt": adamw_init(params)},
+                batch["batch"])
+            assert np.isfinite(float(m["loss"]))
+
+        import types
+        from repro_torch.dist import (P, activation_rules, input_shardings,
+                                      opt_shardings, param_shardings)
+        from repro_torch.launch.mesh import make_mesh
+        mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                     shape=(4, 2))
+        arch = get_arch("internlm2-1.8b")
+        params = steps.init_fn(arch, "train_4k", arch.smoke(),
+                               device="cpu")(0)
+        p_sh = param_shardings("lm", arch.smoke(), mesh, params, "tp")
+        assert p_sh["layers"]["wq"] == P(None, None, "model")
+        assert opt_shardings(p_sh)["step"] == P()
+        assert activation_rules(mesh, "fsdp").dp_size == 4
+        in_sh = input_shardings("recsys", None, mesh, {"inputs": {
+            "cand_emb": torch.empty((1024, 8), device="meta")}})
+        assert in_sh["cand_emb"] == P(("data", "model"), None)
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group(
+                "gloo", store=dist.FileStore(d + "/store", 1), rank=0,
+                world_size=1)
+            arch = get_arch("two-tower-retrieval")
+            cfg = arch.smoke()
+            mesh = make_mesh(1, 1, device_type="cpu")
+            params = steps.init_fn(arch, "retrieval_cand", cfg,
+                                   device="cpu")(0)
+            batch = steps.smoke_batch(arch, "retrieval_cand", cfg,
+                                      device="cpu")
+            want = steps.make_serve_step(arch, "retrieval_cand", cfg)(
+                params, *batch.values())
+            got = steps.make_serve_step(
+                arch, "retrieval_cand", cfg, mesh=mesh, sharded_topk=True)(
+                params, *batch.values())
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            dist.destroy_process_group()
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not leaked, leaked

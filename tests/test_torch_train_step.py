@@ -1,5 +1,5 @@
 """The port's train steps (``launch.steps.loss_fn`` / ``make_train_step``)
-against the reference's, for the 9 ported archs at their smoke configs,
+against the reference's, for the 10 archs at their smoke configs,
 with the reference's parameters carried over by the bridge and the same
 smoke batch (drawn by numpy in the same order); and the port of
 ``tests/test_arch_smoke.py::test_smoke_train_step``.
@@ -35,7 +35,7 @@ from repro_torch.launch import steps as TS
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 
-TRAIN_SHAPE = {"lm": "train_4k", "recsys": "train_batch"}
+TRAIN_SHAPE = {"lm": "train_4k", "gnn": "molecule", "recsys": "train_batch"}
 
 
 def _carried(arch_id, seed=0):
@@ -48,6 +48,8 @@ def _carried(arch_id, seed=0):
     arrays = jax.tree_util.tree_map(np.asarray, jparams)
     if arch.family == "lm":
         params = bridge.transformer_params_from_arrays(cfg, arrays, "cpu")
+    elif arch.family == "gnn":
+        params = bridge.schnet_params_from_arrays(cfg, arrays, "cpu")
     else:
         params = bridge.recsys_params_from_arrays(cfg, arrays, "cpu")
     jbatch = JS.smoke_batch(jarch, shape, jcfg)["batch"]

@@ -221,8 +221,11 @@ def test_bridge_rejects_wrong_shapes():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("schnet")
+    from repro_torch.launch import steps as TS
+    schnet = get_arch("schnet")
+    with pytest.raises(ValueError, match="GNN cells are train-step cells"):
+        TS.make_serve_step(schnet, "ogb_products",
+                           TS.adapt_config(schnet, "ogb_products"))
     params = T.init_params(get_arch("granite-3-2b").smoke(),
                            torch.Generator().manual_seed(0))
     cache = T.init_cache(get_arch("granite-3-2b").smoke(), 1, 4, "cpu")
