@@ -179,6 +179,21 @@ Phases, one JSON line each:
             ``make_serve_step(..., mesh=, sharded_topk=True)`` on
             retrieval_cand bit-equal to the unsharded step, K5 counted
             (more ranks run on gloo on the CPU, in the tests)
+  dryrun    ``repro_torch.launch.dryrun`` with fake CUDA tensors: the
+            reference test's three cells (internlm2-1.8b train_4k, schnet
+            molecule, two-tower retrieval_cand) traced at full size on a
+            fake world of 4 x 2 and of 16 x 16 ranks (ok, per-device
+            FLOPs, collectives by kind, argument and temp bytes, trace
+            seconds; the LM train step must communicate); then six steps
+            at the shapes the earlier phases run (granite-3-2b prefill
+            4 x 4096 and decode 4 x 4128, bert4rec and dlrm-rm2
+            serve_p99, two-tower retrieval_cand, SchNet ogb_products at
+            2^23 edges), each traced on a 1 x 1 mesh and run once on the
+            card under the same counter: FLOPs and argument bytes must be
+            equal; the predicted peak against max_memory_allocated (not
+            gated) and the achieved rate (FLOPs over the median of 3
+            timed steps) beside the card's name and power limit; the
+            phase's seconds against DRYRUN_BUDGET_S
   kernels_models  flash_attention (routes mma, split and f32) and
             embedding_bag against their plain versions on the main path's
             inputs (captured from the lm and recsys runs, where a zeroed
@@ -3794,6 +3809,156 @@ def first_tensor(out):
     return out[0] if isinstance(out, tuple) else out
 
 
+DRYRUN_BUDGET_S = 120.0
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k"), ("schnet", "molecule"),
+                ("two-tower-retrieval", "retrieval_cand"))
+DRYRUN_MESHES = ((4, 2), (16, 16))
+# dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet) by the
+# dtype of a step's matrix products
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def _meta(shape, dtype=torch.int32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def dryrun_card_steps(seed: int, dev):
+    """The six steps the dryrun phase predicts and runs: (name, arch,
+    shape, config, input spec, a function of the parameters giving the
+    real inputs on the card), at the earlier phases' shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    lm = get_arch(LM_ARCH)
+    cfg = lm.config()
+    kv = (cfg.n_layers, LM_BATCH, LM_MAX_LEN, cfg.n_kv_heads, cfg.head_dim)
+    prefill = {"kind": "prefill", "max_len": LM_MAX_LEN,
+               "inputs": {"tokens": _meta((LM_BATCH, LM_PROMPT))}}
+    decode = {"kind": "decode", "inputs": {
+        "token": _meta((LM_BATCH, 1)),
+        "cache": {k: _meta(kv, cfg.compute_dtype) for k in ("k", "v")},
+        "cache_len": _meta(())}}
+
+    def tokens(shape):
+        return torch.from_numpy(np.random.default_rng(seed).integers(
+            1, cfg.vocab, shape).astype(np.int32)).to(dev)
+    out = [("granite-3-2b/prefill", lm, "prefill_32k", cfg, prefill,
+            lambda: (tokens((LM_BATCH, LM_PROMPT)),)),
+           ("granite-3-2b/decode", lm, "decode_32k", cfg, decode,
+            lambda: (tokens((LM_BATCH, 1)),
+                     T.init_cache(cfg, LM_BATCH, LM_MAX_LEN, dev),
+                     D.decode_length(decode)))]
+    for arch_id, shape in (("bert4rec", "serve_p99"),
+                           ("dlrm-rm2", "serve_p99"),
+                           ("two-tower-retrieval", "retrieval_cand")):
+        arch = get_arch(arch_id)
+        c = arch.config()
+        out.append((f"{arch_id}/{shape}", arch, shape, c,
+                    input_specs(arch, shape, c),
+                    functools.partial(lambda *a: tuple(
+                        cell_inputs(*a).values()), arch, shape, c, seed,
+                        dev)))
+    gnn = get_arch("schnet")
+    gcfg = steps.adapt_config(gnn, "ogb_products")
+    batches, _, _ = gnn_data("ogb_products", gcfg, seed)
+    batch = batches[0]
+    spec = {"kind": "gnn_full", "inputs": {"batch": {
+        k: _meta(tuple(v.shape), v.dtype) for k, v in batch.items()}}}
+    out.append(("schnet/ogb_products", gnn, "ogb_products", gcfg, spec,
+                lambda: (tree_to(batch, dev),)))
+    return out
+
+
+def phase_dryrun(seed: int, dev, smi: str) -> None:
+    """The dry run with fake CUDA tensors: the reference test's cells on
+    fake worlds of 8 and 256 ranks; six steps predicted on a 1 x 1 mesh
+    and run once on the card under the same counter (FLOPs and argument
+    bytes equal; peak and achieved rate printed)."""
+    import types
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.train.optimizer import adamw_init
+    t_phase = time.perf_counter()
+    traces = {}
+    for shape in DRYRUN_MESHES:
+        name = "x".join(map(str, shape))
+        for arch_id, cell in DRYRUN_CELLS:
+            rec = D.run_cell(arch_id, cell, name, mesh_shape=shape,
+                             device="cuda", write=False, fit=False)
+            require(rec["ok"], f"dryrun {name} {arch_id} {cell}: "
+                               f"{rec.get('error')}")
+            traces[f"{name}/{arch_id}/{cell}"] = {
+                "flops_per_device": rec["flops"],
+                "collectives": {k: v for k, v in rec["collectives"].items()
+                                if v["count"]},
+                "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+                "temp_bytes": rec["memory"]["temp_size_in_bytes"],
+                "trace_s": rec["trace_s"]}
+            if arch_id == "internlm2-1.8b":
+                require(sum(v["count"] for v in rec["collectives"].values())
+                        > 0, f"dryrun {name}: the LM train step does not "
+                             f"communicate")
+    one = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                shape=(1, 1))
+    card = {}
+    for name, arch, shape, cfg, spec, make in dryrun_card_steps(seed, dev):
+        with fake_world(1):
+            mesh = make_mesh(1, 1, device_type="cuda")
+            pred = D.trace(*D.lower_spec(arch, shape, cfg, spec, mesh, "tp",
+                                         "tp", "cuda"))
+        params = steps.init_fn(arch, shape, cfg, device=dev)(seed)
+        train = spec["kind"] in D.TRAIN_KINDS
+        inputs = make()
+        args = (({"params": params, "opt": adamw_init(params)},) + inputs
+                if train else (params,) + inputs)
+        step = D.cell_step(arch, shape, cfg, spec, one, "tp")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        real = D.trace(step, args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        for _ in range(3):
+            _, ms = synced_ms(lambda: step(*args))
+            times.append(ms)
+        ms = statistics.median(times)
+        flops = real["flops"]
+        require(pred["flops"] == flops, f"dryrun {name}: predicted FLOPs "
+                                        f"{pred['flops']} != the card "
+                                        f"step's {flops}")
+        arg_pred = pred["memory"]["argument_size_in_bytes"]
+        arg_real = real["memory"]["argument_size_in_bytes"]
+        require(arg_pred == arg_real, f"dryrun {name}: predicted argument "
+                                      f"bytes {arg_pred} != {arg_real}")
+        pred_peak = arg_pred + pred["memory"]["temp_size_in_bytes"]
+        dtype = getattr(cfg, "compute_dtype", torch.float32)
+        rate = flops / (ms / 1e3)
+        card[name] = {
+            "flops": flops, "argument_bytes": arg_real,
+            "predicted_temp_bytes": pred["memory"]["temp_size_in_bytes"],
+            "predicted_peak_bytes": pred_peak,
+            "max_memory_allocated": peak,
+            "predicted_over_measured_peak": pred_peak / peak,
+            "bytes_accessed_predicted": pred["bytes_accessed"],
+            "ms": ms, "ms_runs": times, "achieved_flops_per_s": rate,
+            "compute_dtype": str(dtype),
+            "share_of_peak": rate / PEAK_FLOPS[dtype],
+            "trace_s": pred["trace_s"]}
+        del params, inputs, args, step
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit("dryrun", nvidia_smi=smi, traces=traces, card_steps=card,
+         peak_flops_per_s={str(k): v for k, v in PEAK_FLOPS.items()},
+         gates="per step: predicted FLOPs == the card step's; predicted "
+               "argument bytes == the card step's",
+         seconds=seconds, budget_s=DRYRUN_BUDGET_S,
+         within_budget=seconds <= DRYRUN_BUDGET_S)
+
+
 def phase_recsys(seed: int, dev) -> dict:
     """dlrm-rm2, two-tower-retrieval and bert4rec at full width: serve_p99
     and retrieval_cand on the card (launch counts, ms per step), each
@@ -4130,6 +4295,7 @@ def main() -> int:
     rec = phase_recsys(args.seed, dev)
     placed = phase_placement(args.seed, dev, smi)
     sweep = phase_model_kernels(dev)
+    phase_dryrun(args.seed, dev, smi)
     model_main = {"flash_attention": lm["main"]["prefill"],
                   "embedding_bag": rec["main"]["dlrm-rm2"]}
     model_other = {"flash_attention": {

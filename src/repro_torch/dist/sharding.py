@@ -108,6 +108,27 @@ def placements(spec, mesh) -> tuple:
     return tuple(out)
 
 
+def as_placed(t, mesh, place):
+    """``t`` as a DTensor on ``mesh`` laid out as the placements ``place``
+    (redistributed where it lies otherwise); a plain tensor is taken as
+    whole on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, place)
+
+
+def dim0_placements(t, mesh, whole=()) -> list:
+    """Placements that keep ``t``'s split of dim 0 on each mesh dim not in
+    ``whole`` and nothing else (a plain tensor: whole everywhere)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return [Replicate()] * mesh.ndim
+    return [p if p == Shard(0) and m not in whole else Replicate()
+            for m, p in enumerate(t.placements)]
+
+
 # --------------------------------------------------------------------------
 # activations
 # --------------------------------------------------------------------------

@@ -41,8 +41,10 @@ from __future__ import annotations
 
 import functools
 import math
-
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 SOURCES = {"mma": "flash_attention_mma.cu",
            "split": "flash_attention_split.cu",
@@ -173,6 +175,8 @@ def three_pass_bound(ref) -> torch.Tensor:
 
 
 def _check_cuda(q, k, v) -> None:
+    """What the kernels need of CUDA inputs, read from shapes, dtypes and
+    strides (a fake tensor will do); ``_check_aligned`` reads addresses."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel: q, k, v must share one "
                          f"of {list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
@@ -183,8 +187,14 @@ def _check_cuda(q, k, v) -> None:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if (t.stride(-1) != 1 or any(st % vec for st in strides)
-                or t.data_ptr() % 16):
+        if t.stride(-1) != 1 or any(st % vec for st in strides):
+            raise ValueError(f"flash_attention kernel: {name} needs D "
+                             f"contiguous and rows on 16-byte boundaries")
+
+
+def _check_aligned(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel: {name} needs D "
                              f"contiguous and rows on 16-byte boundaries")
 
@@ -193,32 +203,116 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: float | None = None, kv_offset: int = 0,
                     round_p: bool = False) -> torch.Tensor:
     """Attention of q [B, H, Sq, D] over k, v [B, Hkv, Skv, D] -> [B, H, Sq,
-    D] in q's dtype. ``sm_scale`` defaults to 1/sqrt(D). CPU tensors run
-    the plain version (``round_p`` passes to it); CUDA tensors launch
-    ``route(q, k)``'s kernel (counted in the module's ``launches`` and
-    ``launches_by_route``), which rounds P as its route does whatever
-    ``round_p`` says. The CUDA output has q's memory layout."""
-    global launches
+    D] in q's dtype, with q's memory layout. ``sm_scale`` defaults to
+    1/sqrt(D). CPU tensors run the plain version (``round_p`` passes to
+    it); CUDA tensors launch ``route(q, k)``'s kernel (counted in the
+    module's ``launches`` and ``launches_by_route``), which rounds P as its
+    route does whatever ``round_p`` says.
+
+    The call goes through the torch op
+    ``torch.ops.repro_torch.flash_attention``, so torch's dispatcher sees
+    it: a fake tensor gets an empty output of the right shape
+    (``register_fake``), ``FlopCounterMode`` counts ``flops`` of it, and a
+    DTensor call is sharded by ``_sharding`` (batch and heads). A CPU call
+    that autograd records (an input requires grad, grad mode on) runs the
+    plain version outside the op, so it stays differentiable; on the card
+    such a call raises (``build.refuse_grad``)."""
     kv_offset = int(kv_offset)
     _check(q, k, v, kv_offset)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sm_scale=sm_scale, kv_offset=kv_offset,
-                                     round_p=round_p)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_cuda(q, k, v)
-    from . import build
-    build.refuse_grad("flash_attention", q, k, v)
-    if sm_scale is None:
-        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type == "cpu":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         sm_scale=sm_scale,
+                                         kv_offset=kv_offset,
+                                         round_p=round_p)
+    else:
+        from . import build
+        build.refuse_grad("flash_attention", q, k, v)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, sm_scale,
+                                                 kv_offset, round_p)
+
+
+def _op(q, k, v, causal, sm_scale, kv_offset, round_p) -> torch.Tensor:
+    """The op behind ``flash_attention`` (checked inputs): the plain
+    version on CPU tensors, written into q's layout; a kernel launch on
+    CUDA tensors."""
+    global launches
     out = torch.empty_like(q)          # keeps q's layout (and alignment)
+    if q.device.type == "cpu":
+        return out.copy_(flash_attention_plain(
+            q, k, v, causal=causal, sm_scale=sm_scale, kv_offset=kv_offset,
+            round_p=round_p))
+    _check_cuda(q, k, v)
+    _check_aligned(q, k, v)
     if out.numel() == 0:
         return out
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     way = route(q, k)
     _launch(way, q, k, v, out, causal, float(sm_scale), kv_offset)
     launches += 1
     launches_by_route[way] += 1
+    return out
+
+
+# Defined through torch.library.Library with a CPU and a CUDA kernel: a
+# call goes straight from the dispatcher to ``_op``, where
+# ``torch.library.custom_op`` would add an autograd wrapper in Python to
+# each of decode's 40 calls a step (no backward exists to wrap).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float? sm_scale, int kv_offset, bool round_p) -> Tensor")
+_LIB.impl("flash_attention", _op, "CPU")
+_LIB.impl("flash_attention", _op, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _fake(q, k, v, causal, sm_scale, kv_offset, round_p):
+    """The checks of a real call that read no data, and an empty output."""
+    _check(q, k, v, kv_offset)
+    if q.device.type == "cuda":
+        _check_cuda(q, k, v)
+    return torch.empty_like(q)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, kv_offset: int) -> int:
+    """The (query, key) pairs a head computes: every pair, or with
+    ``causal`` the keys 0 .. min(Skv - 1, kv_offset + i) of query row i."""
+    if not causal:
+        return sq * skv
+    full = max(0, min(sq, skv - kv_offset))      # rows that see 1 + offset + i
+    pairs = full * (kv_offset + 1) + full * (full - 1) // 2
+    return pairs + (sq - full) * skv
+
+
+def flops(q_shape, k_shape, causal: bool = True, kv_offset: int = 0) -> int:
+    """The arithmetic of one call: 4 D per visible (query, key) pair per
+    head (Q K^T and P V, a multiply and an add each), whichever route runs."""
+    b, h, sq, d = q_shape
+    return 4 * d * b * h * visible_pairs(sq, k_shape[2], causal, kv_offset)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flop_formula(q_shape, k_shape, v_shape, causal, sm_scale, kv_offset,
+                  round_p, *args, out_shape=None, **kwargs) -> int:
+    return flops(q_shape, k_shape, causal, kv_offset)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _sharding(q, k, v, causal, sm_scale, kv_offset, round_p):
+    """DTensor strategies, one mesh dim at a time: all replicated; the
+    batch split; the heads split alike (each rank's query heads attend its
+    own kv heads), offered only where every mesh dim of more than one rank
+    divides the kv heads, which keeps each query head with its kv head."""
+    rest = [None] * 4
+    out = [([Replicate()], [Replicate()] * 3 + rest),
+           ([Shard(0)], [Shard(0)] * 3 + rest)]
+    sizes = [n for n in q.mesh.shape if n > 1]
+    if all(k.shape[1] % n == 0 for n in sizes):
+        out.append(([Shard(1)], [Shard(1)] * 3 + rest))
     return out
 
 

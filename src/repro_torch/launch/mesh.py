@@ -5,10 +5,13 @@ module touches no process group.
 A mesh spans the default process group, which the caller initialises
 (``init_process_group`` with an address or store, the world size and this
 rank; NCCL for CUDA tensors, gloo for CPU ones) with as many ranks as the
-mesh has places.
+mesh has places. ``fake_world`` makes such a group in one process, for a
+trace that moves no data (the dry run): every rank but this one exists
+only as a number.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 
@@ -39,6 +42,25 @@ def make_mesh(dp: int, tp: int, pods: int = 1, device_type: str = "cuda"):
     if pods > 1:
         return _mesh((pods, dp, tp), ("pod", "data", "model"), device_type)
     return _mesh((dp, tp), ("data", "model"), device_type)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A default process group of ``world_size`` ranks in this process, on
+    torch's ``"fake"`` backend (``FakeStore``): this process is rank 0, and
+    a collective returns at once without moving data. Destroyed on exit.
+    Refuses to start over a default group that already exists."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group exists; "
+                           "destroy it first")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def axis_sizes(mesh) -> dict:

@@ -14,12 +14,13 @@ recsys model, its ``serve`` step (a batch of requests, or requests x a
 shortlist) and its ``retrieval`` step (one query against a candidate set,
 top-100), through the kernels. The two-tower retrieval step also runs
 over a mesh (``mesh=``, ``sharded_topk=True``): each rank scores its
-contiguous slice of the candidates. ``state_specs`` is not ported yet.
+contiguous slice of the candidates. ``state_specs`` gives the train
+state's shapes and dtypes as meta tensors, allocating nothing (the dry
+run's arguments).
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
@@ -30,8 +31,8 @@ from ..core.index import resolve_device
 from ..models import recsys as R
 from ..models import schnet as S
 from ..models import transformer as T
-from ..sparse_ops import embedding_bag
-from ..train.optimizer import AdamWConfig
+from ..sparse_ops import embedding_bag, take_rows
+from ..train.optimizer import AdamWConfig, adamw_init
 from ..train.trainer import train_step
 from ..tree import tree_map
 
@@ -123,7 +124,7 @@ def _dlrm_score_candidates(cfg, params, user, cand_ids, rules):
     user_embs = embedding_bag(params["tables"][:cfg.n_sparse - 1].to(cd),
                               sparse, torch.ones(sparse.shape, dtype=cd,
                                                  device=sparse.device))
-    cand = params["tables"][cfg.n_sparse - 1][cand_ids.long()].to(cd)
+    cand = take_rows(params["tables"][cfg.n_sparse - 1], cand_ids).to(cd)
     fixed = torch.cat([bot, user_embs[0]], dim=0)     # [26, D]
     feats = torch.cat([fixed[None].expand(n, *fixed.shape), cand[:, None]],
                       dim=1)                          # [N, 27, D]
@@ -158,48 +159,13 @@ def _full(x):
     return x.full_tensor() if _split_dims(x) else x.to_local()
 
 
-def _table_rows(table, ids):
-    """``table[ids]`` for a tensor or a DTensor ``table``. A DTensor split
-    evenly on its rows (``Shard(0)`` on the mesh dims that split it) is
-    not gathered: each rank reads the rows it holds, zeros for the others,
-    and an all-reduce over the splitting dims adds the parts; every row
-    comes from one rank, so the sum is exact."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Shard
-    if not isinstance(table, DTensor):
-        return table[ids.long()]
-    mesh, local, dims = table.device_mesh, table.to_local(), _split_dims(table)
-    if not dims:
-        return local[ids.long()]
-    if table.shape[0] % math.prod(mesh.shape[d] for d in dims) or any(
-            table.placements[d] != Shard(0) for d in dims):
-        return table.full_tensor()[ids.long()]
-    idx = ids.long() - _mesh_index(mesh, dims) * local.shape[0]
-    mine = (idx >= 0) & (idx < local.shape[0])
-    rows = torch.where(mine[..., None],
-                       local[idx.clamp(0, local.shape[0] - 1)], 0)
-    for d in dims:
-        dist.all_reduce(rows, group=mesh.get_group(d))
-    return rows
-
-
 def _user_vector(cfg, rules, params, user_feats):
     """The two-tower user vector [D] of one request, its parameters
-    possibly DTensors: the bag runs over the request's own rows of
-    ``user_embed`` (``_table_rows``; row 0 first, the padding id's), with
-    the ids renumbered into them, so it adds the same values in the same
-    order as over the whole table."""
-    n = user_feats.numel()
-    rows = _table_rows(params["user_embed"], torch.cat([
-        user_feats.new_zeros(1), user_feats.reshape(-1)]))
-    local = torch.arange(1, n + 1, dtype=user_feats.dtype,
-                         device=user_feats.device).view(user_feats.shape)
-    user = {"user_embed": rows,
+    possibly DTensors: the user table is read where its rows live (the
+    bag's ``take_rows``), the tower's weights are gathered (``_full``)."""
+    user = {"user_embed": params["user_embed"],
             "user_tower": tree_map(_full, params["user_tower"])}
-    return R.user_encode(cfg, user, torch.where(user_feats > 0, local, 0),
-                         rules)[0]
-
-
+    return R.user_encode(cfg, user, user_feats, rules)[0]
 
 
 def _mesh_gather(x, mesh):
@@ -225,7 +191,7 @@ def _two_tower_sharded_topk(cfg, rules, mesh):
     n_shards = mesh.size()
 
     def step(params, user_feats, cand_emb):
-        u = _user_vector(cfg, rules, params, user_feats)
+        u = _user_vector(cfg, rules, params, _full(user_feats))
         rank = _mesh_index(mesh, range(mesh.ndim))
         n = cand_emb.shape[0]
         if n % n_shards:
@@ -322,6 +288,19 @@ def make_serve_step(arch: ArchSpec, shape: str, cfg,
             return vals, cand_ids[idx]
         return b4r_retr
     raise TypeError(type(cfg))
+
+
+def state_specs(arch: ArchSpec, shape: str, cfg) -> dict:
+    """The train state {"params", "opt"} as meta tensors (shapes and dtypes,
+    nothing allocated): ``init_fn``'s parameters, drawn on the CPU under a
+    ``FakeTensorMode`` (a generator cannot live on the meta device), and
+    ``adamw_init``'s tree of them: float32 moments and an int32 step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_fn(arch, shape, cfg, device="cpu")(0)
+    params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                            device="meta"), fake)
+    return {"params": params, "opt": adamw_init(params)}
 
 
 # --------------------------------------------------------------------------

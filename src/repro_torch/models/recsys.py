@@ -18,7 +18,7 @@ from typing import Any
 
 import torch
 
-from ..sparse_ops import embedding_bag, gather_embedding_bag
+from ..sparse_ops import embedding_bag, gather_embedding_bag, take_rows
 from .transformer import (NO_RULES, Rules, TransformerConfig, forward,
                           init_params as init_tf_params, scores_attention)
 
@@ -51,6 +51,14 @@ def _normal(gen, shape, std, pt):
 
 
 def _unit_rows(x):
+    """Rows scaled to unit norm. A DTensor split on its last dim is
+    gathered there first: the norm's backward writes in place, which
+    DTensor refuses on a partial sum."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard(x.dim() - 1) or p.is_partial() else p
+            for p in x.placements])
     return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1,
                                                         keepdim=True), 1e-6)
 
@@ -112,6 +120,7 @@ def dlrm_forward(cfg: DLRMConfig, params: dict, batch: dict,
                torch.ones(sparse.shape, dtype=cd,
                           device=sparse.device))                # [B, 26, D]
     feats = torch.cat([bot[:, None, :], embs], dim=1)            # [B, 27, D]
+    feats = rules.c(feats, (rules.batch, None, None))
     top_in = torch.cat([bot, dot_interaction(feats)], dim=-1)
     return _mlp(params["top"], top_in)[:, 0]
 
@@ -165,15 +174,16 @@ def din_forward(cfg: DINConfig, params: dict, batch: dict,
                 rules: Rules = NO_RULES):
     """batch: hist [B, L] int (0 pad), target [B] int -> logits [B]."""
     cd = cfg.compute_dtype
-    hist = params["items"][batch["hist"].long()].to(cd)
-    tgt = params["items"][batch["target"].long()].to(cd)
+    hist = take_rows(params["items"], batch["hist"]).to(cd)
+    tgt = take_rows(params["items"], batch["target"]).to(cd)
     tgt_b = tgt[:, None, :].expand_as(hist)
     att_in = torch.cat([hist, tgt_b, hist * tgt_b, hist - tgt_b], dim=-1)
     scores = _mlp(params["attn"], att_in)[..., 0]                # [B, L]
     scores = scores.masked_fill(~(batch["hist"] > 0), -1e30)
     w = torch.softmax(scores, dim=-1)
     user = torch.einsum("bl,bld->bd", w, hist)
-    return _mlp(params["mlp"], torch.cat([user, tgt], dim=-1))[:, 0]
+    x = rules.c(torch.cat([user, tgt], dim=-1), (rules.batch, None))
+    return _mlp(params["mlp"], x)[:, 0]
 
 
 def din_loss(cfg: DINConfig, params: dict, batch: dict,
@@ -229,7 +239,7 @@ def user_encode(cfg: TwoTowerConfig, params: dict, user_feats,
 def item_encode(cfg: TwoTowerConfig, params: dict, item_ids,
                 rules: Rules = NO_RULES):
     cd = cfg.compute_dtype
-    e = params["item_embed"][item_ids.long()].to(cd)
+    e = take_rows(params["item_embed"], item_ids).to(cd)
     return _unit_rows(_mlp(params["item_tower"], e))
 
 
@@ -241,6 +251,7 @@ def two_tower_loss(cfg: TwoTowerConfig, params: dict, batch: dict,
                     bag=gather_embedding_bag)                    # [B, D]
     pos = item_encode(cfg, params, batch["pos_item"], rules)     # [B, D]
     neg = item_encode(cfg, params, batch["neg_items"], rules)    # [N, D]
+    u = rules.c(u, (rules.batch, None))
     temp = 20.0
     s_pos = (u * pos).sum(-1) * temp                             # [B]
     s_neg = u @ neg.T * temp - batch["neg_logq"][None, :]        # [B, N]
@@ -296,9 +307,9 @@ def bert4rec_loss(cfg: Bert4RecConfig, params: dict, batch: dict,
     hidden, _, _ = forward(cfg.tf_config(), params, batch["items"], rules,
                            attention=scores_attention)
     emb = params["embed"].to(hidden.dtype)
-    pos_e = emb[batch["targets"].long()]                         # [B, S, D]
+    pos_e = take_rows(emb, batch["targets"])                     # [B, S, D]
     pos = torch.einsum("bsd,bsd->bs", hidden, pos_e)
-    neg_e = emb[batch["neg_items"].long()]                       # [N, D]
+    neg_e = take_rows(emb, batch["neg_items"])                   # [N, D]
     neg = hidden.float() @ neg_e.float().T                       # [B, S, N]
     lse = torch.logaddexp(pos.float(), torch.logsumexp(neg, dim=-1))
     nll = lse - pos
@@ -313,5 +324,5 @@ def bert4rec_score_catalog(cfg: Bert4RecConfig, params: dict, items,
     compute-dtype product with float32 accumulation)."""
     hidden, _, _ = forward(cfg.tf_config(), params, items, rules)
     state = hidden[:, -1, :]                                     # [B, D]
-    cand = params["embed"][cand_ids.long()].to(state.dtype)
+    cand = take_rows(params["embed"], cand_ids).to(state.dtype)
     return state.float() @ cand.float().T

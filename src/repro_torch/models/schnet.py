@@ -29,6 +29,9 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..dist.sharding import as_placed, dim0_placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,13 +150,49 @@ def rbf_expand(dist: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
     return torch.exp(-gamma * torch.square(dist[:, None] - centres[None, :]))
 
 
+def _rows_at(h, idx):
+    """``h[idx]`` (rows of the nodes [N, D] at edge endpoints [E]). With
+    DTensors: the node rows gathered whole (an all-gather over the node
+    split), each rank reading its own edges' rows; the result is split as
+    the edges are."""
+    if not isinstance(h, DTensor):
+        return h[idx]
+    mesh = h.device_mesh
+    place = dim0_placements(idx, mesh)
+    whole = h.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    return DTensor.from_local(whole[as_placed(idx, mesh, place).to_local()],
+                              mesh, place, run_check=False)
+
+
+def _segment_sum(msg, dst, n_nodes: int, like):
+    """The messages [E, D] summed into their destination nodes [N, D]
+    (``index_add``, the reference's ``segment_sum``). With DTensors: each
+    rank adds its own edges' messages into all N rows, and the partial
+    sums are reduced over the edge split into the layout of ``like`` (the
+    nodes): a reduce-scatter or an all-reduce."""
+    if not isinstance(msg, DTensor):
+        return torch.zeros((n_nodes, msg.shape[1]), dtype=msg.dtype,
+                           device=msg.device).index_add(0, dst, msg)
+    mesh = msg.device_mesh
+    place = dim0_placements(dst, mesh)
+    local = as_placed(msg, mesh, place).to_local()
+    agg = torch.zeros((n_nodes, local.shape[1]), dtype=local.dtype,
+                      device=local.device).index_add(
+        0, as_placed(dst, mesh, place).to_local(), local)
+    agg = DTensor.from_local(agg, mesh, [Partial() if p == Shard(0)
+                                         else Replicate() for p in place],
+                             run_check=False)
+    want = (list(like.placements) if isinstance(like, DTensor)
+            else [Replicate()] * mesh.ndim)
+    return agg.redistribute(mesh, want)
+
+
 def _interaction(cfg: SchNetConfig, lp: dict, x, src, dst, rbf, n_nodes):
     """cfconv + atomwise post layer. x: [N, D]."""
     w = shifted_softplus(_apply(lp["filter1"], rbf))       # [E, D]
-    xs = (x @ lp["in2f"]["w"].to(x.dtype))[src]            # gather source
+    xs = _rows_at(x @ lp["in2f"]["w"].to(x.dtype), src)    # gather source
     msg = xs * w
-    agg = torch.zeros((n_nodes, msg.shape[1]), dtype=msg.dtype,
-                      device=msg.device).index_add(0, dst, msg)
+    agg = _segment_sum(msg, dst, n_nodes, x)
     h = shifted_softplus(_apply(lp["f2out"], agg))
     h = _apply(lp["post"], h)
     return x + h
@@ -194,8 +233,11 @@ def molecule_energy(cfg: SchNetConfig, params: dict, batch: dict):
     es_s = torch.where(emask, es, 0)
     ed_s = torch.where(emask, ed, 0)
     rows = torch.arange(b, device=z.device)[:, None]
-    d = torch.linalg.vector_norm(pos[rows, es_s] - pos[rows, ed_s] + 1e-9,
-                                 dim=-1)
+    flat = pos.reshape(b * n, 3)          # atom (i, j) at row i * n + j
+    d = torch.linalg.vector_norm(
+        (_rows_at(flat, (es_s + rows * n).reshape(-1))
+         - _rows_at(flat, (ed_s + rows * n).reshape(-1))
+         + 1e-9).view(b, -1, 3), dim=-1)
     d = torch.where(emask, d, cfg.cutoff)
     off = rows * n                                         # first node of each
     out = encode(cfg, params, z.reshape(-1), (es_s + off).reshape(-1),

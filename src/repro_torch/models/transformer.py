@@ -22,9 +22,12 @@ default) and every weight is cast to ``compute_dtype`` where it is used, as
 in the reference. ``compute_params`` makes that cast once, ahead of serving;
 the values are the same. Logits are float32 at any compute dtype.
 
-Single-card semantics: ``Rules``' sharding hints and ``unroll`` are kept
-so that the configs read as the reference's, and have no effect here;
-``Rules.dp_size`` does, as the MoE layer's number of dispatch groups.
+Sharding: ``Rules.c`` and ``Rules.w`` are the reference's sharding
+constraints; they act on ``DTensor``s (a mesh-sharded model, the dry run)
+and leave plain tensors untouched, so a model on one card runs as it
+did. ``Rules.dp_size`` is semantics, the MoE layer's number of dispatch
+groups. ``unroll`` is kept so that the configs read as the reference's,
+and has no effect here.
 ``attn_chunk`` bounds ``scores_attention``'s scores to that many query
 rows at a time (the kernel never holds more than a tile's). ``remat``
 recomputes each layer in the backward pass (``remat_policy="full"``,
@@ -36,15 +39,19 @@ and returned.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from ..core.index import check_full_f32
+from ..dist.sharding import as_placed
 from ..core.traversal import _topk_stable
 from ..kernels import flash_attention as fa
+from ..sparse_ops import take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,23 +124,68 @@ class TransformerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Rules:
-    """Logical-axis -> mesh-axis names, as the reference's. On one card
-    they shard nothing: ``c`` returns its input, ``w`` only casts. One
-    field is semantics, not a hint: ``dp_size`` sets the MoE layer's
-    number of dispatch groups, and capacity (which assignments drop) is
-    per group."""
-    batch: Any = None
-    heads: Any = None
-    kv_seq: Any = None
+    """Logical-axis -> mesh-axis names (None = replicated), as the
+    reference's. ``c`` and ``w`` are the reference's sharding constraints,
+    acting on ``DTensor``s (their own ``device_mesh`` names the axes) and
+    leaving plain tensors untouched, so a model on one card runs as it
+    did. One field is semantics, not a hint: ``dp_size`` sets the MoE
+    layer's number of dispatch groups, and capacity (which assignments
+    drop) is per group."""
+    batch: Any = None       # activation batch dim
+    heads: Any = None       # attention heads / ffn inner / experts
+    kv_seq: Any = None      # KV cache sequence (SP for long decode)
     vocab: Any = None
-    dp_size: int = 1
-    gather_weights: bool = False
+    dp_size: int = 1        # data-shard count = MoE dispatch group count
+    gather_weights: bool = False  # FSDP: all-gather weights in compute dtype
 
     def c(self, x, spec):
-        return x
+        """A DTensor ``x`` laid out as ``spec`` (entry d: the mesh axes that
+        split dim d, or None), a dim that its axes do not divide
+        replicated, as the placement rules replicate one; anything else
+        as it is."""
+        return constrain(x, spec)
 
     def w(self, weight, dtype):
-        return weight.to(dtype)
+        """A parameter cast for compute; under FSDP a DTensor's cast is
+        then replicated, so the per-layer all-gather moves the compute
+        dtype, not the float32 master shard."""
+        weight = weight.to(dtype)
+        if self.gather_weights:
+            weight = constrain(weight, (None,) * weight.dim())
+        return weight
+
+
+def _is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def _placements_for(shape, spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` for a tensor of ``shape`` on
+    ``mesh``: dims beyond the spec, and dims its axes do not divide,
+    replicated."""
+    from ..dist.sharding import P, placements
+    from ..launch.mesh import axis_sizes
+    sizes = axis_sizes(mesh)
+    entries = []
+    for d, n in enumerate(shape):
+        e = spec[d] if d < len(spec) else None
+        axes = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        entries.append(e if axes and n % math.prod(sizes[a] for a in axes)
+                       == 0 else None)
+    return placements(P(*entries), mesh)
+
+
+def constrain(x, spec):
+    """``Rules.c``: a DTensor redistributed to ``spec``'s placements on its
+    own mesh (``_placements_for``), its gradient laid out alike in the
+    backward pass (as JAX constrains a sharding constraint's cotangent);
+    a plain tensor untouched."""
+    if not _is_dtensor(x):
+        return x
+    want = _placements_for(x.shape, spec, x.device_mesh)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return _GradLaidOut.apply(x)
 
 
 NO_RULES = Rules()
@@ -289,7 +341,8 @@ def scores_attention(q, k, v, causal: bool, q_offset: int, chunk: int = 0):
 def _dense_ffn(x, w_gate, w_up, w_down, rules: Rules):
     hg = x @ rules.w(w_gate, x.dtype)
     hu = x @ rules.w(w_up, x.dtype)
-    return (F.silu(hg) * hu) @ rules.w(w_down, x.dtype)
+    h = rules.c(F.silu(hg) * hu, (rules.batch, rules.heads))
+    return h @ rules.w(w_down, x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,20 +390,26 @@ def moe_route(x, router, moe: MoEConfig, rules: Rules = NO_RULES
     filled in (token, rank) order: a stable sort by expert, its start by
     ``searchsorted``."""
     t, d = x.shape
-    e, k = moe.n_experts, moe.top_k
     g = moe_groups(t, rules.dp_size)
-    tl = t // g
+    return _route(x.view(g, t // g, d), rules.w(router, x.dtype), moe)
+
+
+def _route(xg, router, moe: MoEConfig) -> MoEDispatch:
+    """``moe_route`` of the groups xg [G, Tl, D] (plain tensors) with the
+    router already cast."""
+    g, tl, _ = xg.shape
+    e, k = moe.n_experts, moe.top_k
     # TF32 would change the logits, and with them the experts picked
-    check_full_f32(x.device, "the MoE router")
-    logits = x.view(g, tl, d).float() @ rules.w(router, x.dtype).float()
+    check_full_f32(xg.device, "the MoE router")
+    logits = xg.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _topk_stable(probs, k)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     sorted_e, order = torch.sort(top_e.reshape(g, tl * k), dim=-1,
                                  stable=True)
-    experts = torch.arange(e, device=x.device).expand(g, e).contiguous()
+    experts = torch.arange(e, device=xg.device).expand(g, e).contiguous()
     start = torch.searchsorted(sorted_e, experts, side="left")
-    rank = (torch.arange(tl * k, device=x.device)
+    rank = (torch.arange(tl * k, device=xg.device)
             - torch.gather(start, 1, sorted_e))
     slot = torch.empty_like(rank).scatter_(1, order, rank).view(g, tl, k)
     cap = moe_capacity(tl, moe)
@@ -397,25 +456,156 @@ def _moe_ffn(x, router, w_gate, w_up, w_down, moe: MoEConfig,
     never read), the three expert products are batched over E (float32
     accumulation, the compute dtype out), and ``_moe_combine`` sums each
     token's weighted expert outputs. The aux loss is Switch's,
-    E * sum(frac_tokens * frac_probs) over the top-1 experts."""
-    t, d = x.shape
-    e, k = moe.n_experts, moe.top_k
+    E * sum(frac_tokens * frac_probs) over the top-1 experts. A DTensor
+    ``x`` takes ``_moe_ffn_sharded``."""
+    if _is_dtensor(x):
+        return _moe_ffn_sharded(x, router, w_gate, w_up, w_down, moe, rules)
     r = moe_route(x, router, moe, rules)
+    ws = [rules.w(w, x.dtype) for w in (w_gate, w_up, w_down)]
+    out_e, row = _moe_experts(x, r, ws, 0)
+    y = _moe_combine(out_e.view(-1, x.shape[1]), row, r)
+    frac_t = F.one_hot(r.top_e[..., 0].reshape(-1), moe.n_experts
+                       ).float().mean(0)
+    frac_p = r.probs.mean(dim=(0, 1))
+    return y, moe.n_experts * (frac_t * frac_p).sum()
+
+
+def _moe_experts(x, r: MoEDispatch, ws, first: int):
+    """(outputs [E', G x C, D] of experts first .. first + E' - 1, the
+    assignments' buffer rows [G, Tl, K]) for the tokens x [G x Tl, D] of
+    the dispatch ``r`` and those experts' weights ``ws`` (gate, up, down)."""
+    t, d = x.shape
+    e, k = r.probs.shape[-1], r.top_e.shape[-1]
     rows = e * r.groups * r.capacity
     row = _moe_rows(r)
     # dropped assignments write their token to a spare last entry
     src = torch.zeros(rows + 1, dtype=torch.long, device=x.device)
     src[torch.where(r.keep, row, rows).flatten()] = torch.arange(
         t, device=x.device).repeat_interleave(k)
-    buf = x[src[:rows]].view(e, -1, d)
-    hg = torch.bmm(buf, rules.w(w_gate, x.dtype))
-    hu = torch.bmm(buf, rules.w(w_up, x.dtype))
-    out_e = torch.bmm(F.silu(hg) * hu, rules.w(w_down, x.dtype))
-    del buf, hg, hu
-    y = _moe_combine(out_e.view(rows, d), row, r)
+    n = ws[0].shape[0]
+    buf = x[src[:rows]].view(e, -1, d)[first:first + n]
+    hg = torch.bmm(buf, ws[0])
+    hu = torch.bmm(buf, ws[1])
+    return torch.bmm(F.silu(hg) * hu, ws[2]), row
+
+
+def _moe_ffn_sharded(x, router, w_gate, w_up, w_down, moe: MoEConfig,
+                     rules: Rules):
+    """``_moe_ffn`` of a DTensor x [T, D] on its mesh, as the reference's
+    sharded layer: the G dispatch groups split over the data axes (each
+    rank routes its own groups), the expert weights split over E where a
+    mesh dim that splits no group splits them (expert parallelism: each
+    rank runs its experts on its groups' buffer), their outputs gathered
+    over those dims (an all-gather) for the combine. Routing (a sort, a
+    ``searchsorted``) and the combine run on each rank's local tensors;
+    the aux loss's means are averaged over the group split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    t, d = x.shape
+    e = moe.n_experts
+    g = moe_groups(t, rules.dp_size)
+    xg = rules.c(x.view(g, t // g, d), (rules.batch, None, None))
+    mesh = xg.device_mesh
+    groups = [p if p == Shard(0) else Replicate() for p in xg.placements]
+    xl = xg.redistribute(mesh, groups).to_local()          # [Gl, Tl, D]
+    r = _route(xl, _whole(rules.w(router, x.dtype)), moe)
+    ws = [rules.w(w, x.dtype) for w in (w_gate, w_up, w_down)]
+    experts = [Shard(0) if (p == Shard(0) and groups[m] == Replicate()
+                            and e % mesh.shape[m] == 0) else Replicate()
+               for m, p in enumerate(ws[0].placements)]
+    local = [as_placed(w, mesh, experts).to_local() for w in ws]
+    first, n_loc = 0, local[0].shape[0]
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(experts):
+        if p == Shard(0):
+            first = first * mesh.shape[m] + coord[m]
+    out_l, row = _moe_experts(xl.reshape(-1, d), r, local, first * n_loc)
+    by_group = [Shard(1) if p == Shard(0) else Replicate() for p in groups]
+    out = DTensor.from_local(out_l, mesh, [
+        Shard(0) if p == Shard(0) else by_group[m]
+        for m, p in enumerate(experts)], run_check=False)
+    out = out.redistribute(mesh, by_group).to_local()     # [E, Gl x C, D]
+    y = _moe_combine(out.reshape(-1, d), row, r).view(xl.shape)
+    y = DTensor.from_local(y, mesh, groups, run_check=False,
+                           shape=xg.shape, stride=xg.stride())
+    y = rules.c(y, (rules.batch, None, None)).view(t, d)
+    mean = [Partial("avg") if p == Shard(0) else Replicate() for p in groups]
+    whole = [Replicate()] * mesh.ndim
     frac_t = F.one_hot(r.top_e[..., 0].reshape(-1), e).float().mean(0)
     frac_p = r.probs.mean(dim=(0, 1))
+    frac_t, frac_p = (DTensor.from_local(f, mesh, mean, run_check=False
+                                         ).redistribute(mesh, whole)
+                      for f in (frac_t, frac_p))
     return y, e * (frac_t * frac_p).sum()
+
+
+def _whole(t):
+    """A DTensor's whole value on every rank (gathered where split), or
+    ``t`` itself."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _per_shard(attn, q, k, v, causal: bool, q_offset: int, chunk: int):
+    """``attn(q, k, v, ...)`` with q [B, Sq, H, Dh], k, v [B, Skv, Hkv, Dh];
+    with DTensors, on each rank's shards: the batch where q splits it,
+    the heads where q splits them and the split divides H and Hkv (each
+    rank's query heads then attend its own kv heads), everything else
+    whole. Attention is independent per (batch, head), so the local calls
+    are the whole call's parts."""
+    if not _is_dtensor(q):
+        return attn(q, k, v, causal, q_offset, chunk)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    h, hkv = q.shape[2], k.shape[2]
+    place = []
+    for m, p in enumerate(q.placements):
+        n = mesh.shape[m]
+        if p == Shard(0) and q.shape[0] % n == 0:
+            place.append(Shard(0))
+        elif p == Shard(2) and h % n == 0 and hkv % n == 0:
+            place.append(Shard(2))
+        else:
+            place.append(Replicate())
+    ql, kl, vl = (as_placed(t, mesh, place).to_local() for t in (q, k, v))
+    o = attn(ql, kl, vl, causal, q_offset, chunk).contiguous()
+    return DTensor.from_local(o, mesh, place, run_check=False,
+                              shape=q.shape, stride=_contiguous(q.shape))
+
+
+class _GradLaidOut(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient is laid out as the DTensor
+    was. Placed after a reshape, it keeps the reshape's backward view
+    possible: a gradient split where the forward value was whole (a
+    row-split projection's backward splits its input's columns, a sum of
+    two gradients may split the tokens over every mesh dim) may not view
+    back into heads, or into a batch, that the split does not divide."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        # a partial sum's gradient is whole on each rank
+        ctx.layout = (x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, place = ctx.layout
+        if tuple(grad.placements) != place:
+            grad = grad.redistribute(mesh, place)
+        return grad
+
+
+def _grad_laid_out(x):
+    return _GradLaidOut.apply(x) if _is_dtensor(x) else x
+
+
+def _contiguous(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, step = [], 1
+    for n in reversed(shape):
+        out.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(out))
 
 
 # --------------------------------------------------------------------------
@@ -443,10 +633,12 @@ def _layer(cfg: TransformerConfig, rules: Rules, x, lp, positions,
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = cfg.compute_dtype
-    xn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (xn @ rules.w(lp["wq"], cd)).view(b, s, h, dh)
-    k = (xn @ rules.w(lp["wk"], cd)).view(b, s, hkv, dh)
-    v = (xn @ rules.w(lp["wv"], cd)).view(b, s, hkv, dh)
+    # the norms' backward may split a gradient's tokens where the residual
+    # is whole: their inputs keep the residual's layout (_grad_laid_out)
+    xn = rms_norm(_grad_laid_out(x), lp["attn_norm"], cfg.norm_eps)
+    q = _heads(xn @ rules.w(lp["wq"], cd), h)
+    k = _heads(xn @ rules.w(lp["wk"], cd), hkv)
+    v = _heads(xn @ rules.w(lp["wv"], cd), hkv)
     if cfg.rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -466,16 +658,33 @@ def _layer(cfg: TransformerConfig, rules: Rules, x, lp, positions,
         _write_cache(cv, v, cache_len)
         k, v = ck, cv
         q_offset = cache_len
-    o = attn(q, k, v, cfg.causal, q_offset, cfg.attn_chunk)
-    x = x + o.reshape(b, s, h * dh) @ rules.w(lp["wo"], cd)
-    xn = rms_norm(x, lp["ffn_norm"], cfg.norm_eps).reshape(b * s, -1)
+    o = _per_shard(attn, q, k, v, cfg.causal, q_offset, cfg.attn_chunk)
+    x = x + _grad_laid_out(o.reshape(b, s, h * dh)) @ rules.w(lp["wo"], cd)
+    xn = _grad_laid_out(rms_norm(_grad_laid_out(x), lp["ffn_norm"],
+                                 cfg.norm_eps).reshape(b * s, -1))
     aux = None
     if cfg.moe is not None:
         y, aux = _moe_ffn(xn, lp["router"], lp["w_gate"], lp["w_up"],
                           lp["w_down"], cfg.moe, rules)
     else:
         y = _dense_ffn(xn, lp["w_gate"], lp["w_up"], lp["w_down"], rules)
-    return x + y.view(b, s, -1), aux
+    return rules.c(x + y.view(b, s, -1), (rules.batch, None, None)), aux
+
+
+def _heads(x, n: int):
+    """[B, S, n x Dh] -> [B, S, n, Dh]. A DTensor split on its last dim by a
+    mesh dim that does not divide ``n`` is gathered there first: the
+    head counts need not divide the mesh (granite's 8 kv heads on a
+    model axis of 16), and a split head cannot be viewed."""
+    b, s, f = x.shape
+    if _is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = x.device_mesh
+        want = [Replicate() if p == Shard(2) and n % mesh.shape[m] else p
+                for m, p in enumerate(x.placements)]
+        if want != list(x.placements):
+            x = x.redistribute(mesh, want)
+    return x.view(b, s, n, f // n)
 
 
 CACHE_KEYS = ("k", "v")
@@ -497,11 +706,12 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     cd = cfg.compute_dtype
     b, s = tokens.shape
     tokens = tokens.long()
-    x = params["embed"][tokens].to(cd)
+    x = take_rows(params["embed"], tokens).to(cd)
     start = 0 if cache is None else int(cache_len)
     positions = (start + torch.arange(s, device=tokens.device)).expand(b, s)
     if cfg.max_position:
-        x = x + params["pos_embed"][positions].to(cd)
+        x = x + take_rows(params["pos_embed"], positions).to(cd)
+    x = rules.c(x, (rules.batch, None, None))
     keys = CACHE_KEYS_Q if cfg.kv_quant else CACHE_KEYS
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     if remat and cfg.remat_policy != "full":
@@ -543,7 +753,7 @@ def logits_fn(cfg: TransformerConfig, params: dict, hidden: torch.Tensor,
     head = params.get("head_f32")
     if head is None:
         head = _head(cfg, params).to(hidden.dtype).float()
-    return hidden.float() @ head
+    return rules.c(hidden.float() @ head, (rules.batch, None, rules.vocab))
 
 
 def splade_encode(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
@@ -559,6 +769,37 @@ def splade_encode(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     return torch.clamp_min(rep, 0.0)
 
 
+def _pick(logits, tgt):
+    """``logits[..., tgt]`` (the targets' logits). DTensor logits split on
+    the vocab (the last dim) are read where each target's logit lives:
+    each rank gathers the targets in its slice (zeros for the others) and
+    a sum over the splitting mesh dims completes them (vocab-parallel);
+    the targets keep the logits' split of the other dims."""
+    if not _is_dtensor(logits):
+        return torch.gather(logits, -1, tgt.unsqueeze(-1)).squeeze(-1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    vocab = [m for m, p in enumerate(logits.placements)
+             if p == Shard(last) and mesh.shape[m] > 1]
+    rest = [Replicate() if m in vocab or p == Shard(last) else p
+            for m, p in enumerate(logits.placements)]
+    local = logits.redistribute(mesh, [
+        Shard(last) if m in vocab else p
+        for m, p in enumerate(rest)]).to_local()
+    t = as_placed(tgt, mesh, rest).to_local()
+    first, coord = 0, mesh.get_coordinate()
+    for m in vocab:
+        first = first * mesh.shape[m] + coord[m]
+    t = t - first * local.shape[-1]
+    mine = (t >= 0) & (t < local.shape[-1])
+    got = torch.gather(local, -1, t.clamp(0, local.shape[-1] - 1)
+                       .unsqueeze(-1)).squeeze(-1)
+    got = torch.where(mine, got, 0.0)
+    return DTensor.from_local(got, mesh, [
+        Partial() if m in vocab else p for m, p in enumerate(rest)],
+        run_check=False).redistribute(mesh, rest)
+
+
 def lm_loss(cfg: TransformerConfig, params: dict, batch: dict,
             rules: Rules = NO_RULES):
     """The training loss of ``batch`` {"tokens", "targets"[, "mask"]}: the
@@ -569,7 +810,7 @@ def lm_loss(cfg: TransformerConfig, params: dict, batch: dict,
                              attention=scores_attention)
     logits = logits_fn(cfg, params, hidden, rules)
     tgt = batch["targets"].long()
-    picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    picked = _pick(logits, tgt)
     nll = torch.logsumexp(logits, dim=-1) - picked
     mask = batch.get("mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
@@ -582,17 +823,24 @@ def lm_loss(cfg: TransformerConfig, params: dict, batch: dict,
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
-               device) -> dict:
+               device, mesh=None, spec=()) -> dict:
     """A zero KV cache [L, B, max_len, Hkv, Dh] in the compute dtype, or
-    int8 with float32 scales [L, B, max_len, Hkv] under ``kv_quant``."""
+    int8 with float32 scales [L, B, max_len, Hkv] under ``kv_quant``. With
+    a ``DeviceMesh``, DTensors laid out as ``spec`` (each rank allocates
+    its own shard)."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     kv_dtype = torch.int8 if cfg.kv_quant else cfg.compute_dtype
-    cache = {k: torch.zeros(shape, dtype=kv_dtype, device=device)
-             for k in CACHE_KEYS}
+
+    def zeros(shape, dtype):
+        if mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        from torch.distributed.tensor import zeros as dzeros
+        return dzeros(shape, dtype=dtype, device_mesh=mesh,
+                      placements=_placements_for(shape, spec, mesh))
+    cache = {k: zeros(shape, kv_dtype) for k in CACHE_KEYS}
     if cfg.kv_quant:
         for k in CACHE_KEYS_Q[2:]:
-            cache[k] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                   device=device)
+            cache[k] = zeros(shape[:-1], torch.float32)
     return cache
 
 
@@ -600,7 +848,9 @@ def prefill(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             max_len: int, rules: Rules = NO_RULES):
     """Run the prompt into a new cache of ``max_len`` positions. Returns
     (last-position logits [B, 1, V], cache)."""
-    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    mesh = tokens.device_mesh if _is_dtensor(tokens) else None
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device, mesh,
+                       (None, rules.batch, rules.kv_seq, None, None))
     hidden, _, cache = forward(cfg, params, tokens, rules, cache=cache,
                                cache_len=0)
     return logits_fn(cfg, params, hidden[:, -1:, :], rules), cache

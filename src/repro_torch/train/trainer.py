@@ -44,6 +44,16 @@ class SimulatedFailure(RuntimeError):
     pass
 
 
+def _param_layout(grad, param):
+    """A DTensor gradient laid out as its parameter (a partial sum over the
+    data-parallel ranks becomes a reduce-scatter or an all-reduce there),
+    the reference's ``grad_shardings``; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(grad, DTensor) and grad.placements != param.placements:
+        return grad.redistribute(param.device_mesh, param.placements)
+    return grad
+
+
 def train_step(loss_fn: Callable, opt_cfg: AdamWConfig, state: dict, batch,
                microbatches: int = 1, compression: bool = False):
     """One optimizer step on ``batch``: (state, metrics) with ``loss``,
@@ -71,6 +81,7 @@ def train_step(loss_fn: Callable, opt_cfg: AdamWConfig, state: dict, batch,
         loss = lsum / m
     else:
         loss, grads = tree.value_and_grad(loss_fn, params, batch)
+    grads = tree.tree_map(_param_layout, grads, params)
     if compression:
         grads, err = compress_with_feedback(grads, state["err"])
     params, opt, metrics = adamw_update(opt_cfg, grads, state["opt"], params)

@@ -1216,3 +1216,94 @@ def test_sharded_topk_nccl_world_one_equals_unsharded(cuda, tmp_path):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     finally:
         dist.destroy_process_group()
+
+
+# -- K5 / K6 as custom ops: counted work, fake traces, the same launches --
+
+@pytest.mark.parametrize("way,dtype,sq", [("mma", torch.bfloat16, 64),
+                                          ("split", torch.bfloat16, 1),
+                                          ("f32", torch.float32, 8)])
+def test_flops_counted_through_custom_ops_on_card(cuda, way, dtype, sq):
+    """``FlopCounterMode`` around K6 (each route) and K5 on the card counts
+    each op's formula: 4 D per visible (query, key) pair per head, 2 D
+    per (bag, index) pair; the kernels launch as counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(2, 8, sq, 64, generator=g, device=cuda).to(dtype)
+    k = torch.randn(2, 2, 96, 64, generator=g, device=cuda).to(dtype)
+    assert fa.route(q, k) == way
+    before = fa.launches_by_route[way]
+    with FlopCounterMode(display=False) as m:
+        fa.flash_attention(q, k, k, kv_offset=96 - sq)
+    assert m.get_total_flops() == fa.flops(q.shape, k.shape, True, 96 - sq)
+    assert fa.launches_by_route[way] == before + 1
+    table = torch.randn(3, 500, 32, generator=g, device=cuda)
+    idx = torch.randint(0, 500, (16, 3, 4), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = eb.launches
+    with FlopCounterMode(display=False) as m:
+        eb.embedding_bag(table, idx, torch.ones(idx.shape, device=cuda))
+    assert m.get_total_flops() == 2 * 32 * 16 * 3 * 4
+    assert eb.launches == before + 1
+
+
+@pytest.mark.parametrize("way,dtype,sq", [("mma", torch.bfloat16, 64),
+                                          ("split", torch.bfloat16, 1),
+                                          ("f32", torch.float32, 1)])
+def test_custom_op_equals_direct_launch_on_card(cuda, way, dtype, sq):
+    """Through the custom op, K6 writes what its launcher writes when
+    called directly (bit for bit, decode rows included), and K5 stays
+    bit-equal to its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(4, 32, sq, 64, generator=g, device=cuda).to(dtype)
+    k = torch.randn(4, 8, 300, 64, generator=g, device=cuda).to(dtype)
+    v = torch.randn(4, 8, 300, 64, generator=g, device=cuda).to(dtype)
+    got = fa.flash_attention(q, k, v, kv_offset=300 - sq)
+    direct = torch.empty_like(q)
+    fa._launch(way, q, k, v, direct, True, 1.0 / 8.0, 300 - sq)
+    assert torch.equal(got, direct)
+    table = torch.randn(1000, 64, generator=g, device=cuda)
+    idx = torch.randint(0, 1000, (64, 8), generator=g, device=cuda,
+                        dtype=torch.int32)
+    w = torch.rand(64, 8, generator=g, device=cuda)
+    assert torch.equal(eb.embedding_bag(table, idx, w),
+                       eb.embedding_bag_plain(table, idx, w))
+
+
+@pytest.mark.parametrize("arch_id,shape", [("granite-3-2b", "decode_32k"),
+                                           ("dlrm-rm2", "serve_p99"),
+                                           ("bert4rec", "serve_p99")])
+def test_fake_cuda_trace_equals_card_step(cuda, arch_id, shape):
+    """A smoke serve step traced by the dry run on a 1 x 1 mesh with fake
+    CUDA tensors counts the FLOPs and argument bytes that the same step
+    counts running on the card (through K5 / K6)."""
+    import types
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    arch = get_arch(arch_id)
+    cfg = arch.smoke()
+    batch = steps.smoke_batch(arch, shape, cfg, device=cuda)
+    spec = input_specs(arch, shape, cfg)
+    spec["inputs"] = {k: _meta_like(v) for k, v in batch.items()}
+    if spec["kind"] == "decode":
+        batch["cache_len"] = D.decode_length(spec)
+    with fake_world(1):
+        pred = D.trace(*D.lower_spec(arch, shape, cfg, spec, make_mesh(
+            1, 1, device_type="cuda"), "tp", "tp", "cuda"))
+    params = steps.init_fn(arch, shape, cfg, device=cuda)(0)
+    one = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                shape=(1, 1))
+    real = D.trace(D.cell_step(arch, shape, cfg, spec, one, "tp"),
+                   (params, *batch.values()))
+    assert pred["flops"] == real["flops"] > 0
+    assert pred["memory"]["argument_size_in_bytes"] == \
+        real["memory"]["argument_size_in_bytes"]
+
+
+def _meta_like(x):
+    if isinstance(x, dict):
+        return {k: _meta_like(v) for k, v in x.items()}
+    if torch.is_tensor(x):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return torch.empty((), dtype=torch.int32, device="meta")

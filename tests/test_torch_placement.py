@@ -4,10 +4,11 @@
 JAX package.
 
 The rules are pure functions of shapes and of the mesh's axis names and
-sizes: both packages get the same shapes (the reference's ``state_specs``
-and ``input_specs``; the port's side as meta tensors) and the same mesh
-shape, and every spec must equal the reference's ``PartitionSpec`` entry
-by entry and print as it does. The reference's rules wrap each spec in a
+sizes: each package gets its own shapes (its ``state_specs`` and
+``input_specs``; the port's are meta tensors, equal to the reference's leaf
+for leaf, ``test_torch_specs.py``) and the same mesh shape, and every spec
+must equal the reference's ``PartitionSpec`` entry by entry and print as
+it does. The reference's rules wrap each spec in a
 ``NamedSharding``, which needs real devices; on meshes larger than this
 process's one CPU device a stand-in that returns the spec takes its place
 (``_ref_specs``). Multi-rank cases run on gloo ranks in subprocesses
@@ -29,6 +30,7 @@ from repro.configs import get_arch as jax_get_arch
 from repro.configs.shapes import input_specs
 from repro.launch.steps import state_specs
 from repro_torch.configs import ARCH_IDS, get_arch
+from repro_torch.configs.shapes import input_specs as port_input_specs
 from repro_torch.dist import sharding as SH
 from repro_torch.dist.sharding import P
 from repro_torch.launch import mesh as M
@@ -50,16 +52,6 @@ def _meshes(name):
     return (types.SimpleNamespace(axis_names=axes,
                                   shape=dict(zip(axes, sizes))),
             types.SimpleNamespace(mesh_dim_names=axes, shape=sizes))
-
-
-def _meta(tree):
-    """A reference tree of shaped leaves as the port's: dicts and lists of
-    meta tensors of the same shapes."""
-    if isinstance(tree, dict):
-        return {k: _meta(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_meta(v) for v in tree]
-    return torch.empty(tuple(tree.shape), device="meta")
 
 
 def _ref_specs(monkeypatch):
@@ -113,9 +105,9 @@ def test_activation_rules_tp_vs_fsdp(mesh11):
 
 
 def _lm_specs(mesh, variant):
-    arch = jax_get_arch("internlm2-1.8b")
-    st = state_specs(arch, "train_4k", arch.config())
-    return SH.param_shardings("lm", None, mesh, _meta(st["params"]), variant)
+    arch = get_arch("internlm2-1.8b")
+    st = TS.state_specs(arch, "train_4k", arch.config())
+    return SH.param_shardings("lm", None, mesh, st["params"], variant)
 
 
 def test_lm_param_placement(mesh11):
@@ -146,11 +138,10 @@ def test_fsdp_shards_params_over_all_axes(mesh11):
 
 
 def test_input_shardings_batch_and_candidates(mesh11):
-    arch = jax_get_arch("two-tower-retrieval")
+    arch = get_arch("two-tower-retrieval")
     cfg = arch.config()
-    spec = input_specs(arch, "retrieval_cand", cfg)
-    in_sh = SH.input_shardings("recsys", cfg, mesh11,
-                               {"inputs": _meta(spec["inputs"])}, "tp")
+    spec = port_input_specs(arch, "retrieval_cand", cfg)
+    in_sh = SH.input_shardings("recsys", cfg, mesh11, spec, "tp")
     # 1M-candidate axis spans the whole mesh; the 1-row user replicates
     assert in_sh["cand_emb"][0] == ("data", "model")
     assert all(s is None for s in in_sh["user_feats"])
@@ -181,13 +172,17 @@ def test_non_divisible_dims_replicate():
 
 # -- every family's state and every cell's inputs, leaf for leaf -------------
 
-def _state_meta(arch_id):
+def _states(arch_id):
+    """(the reference's arch, config and state specs, the port's state
+    specs) of the arch's train cell."""
     jarch = jax_get_arch(arch_id)
     shape = {"lm": "train_4k", "gnn": "ogb_products",
              "recsys": "train_batch"}[jarch.family]
     from repro.launch.steps import adapt_config
     cfg = adapt_config(jarch, shape)
-    return jarch, cfg, state_specs(jarch, shape, cfg)
+    arch = get_arch(arch_id)
+    return (jarch, cfg, state_specs(jarch, shape, cfg),
+            TS.state_specs(arch, shape, TS.adapt_config(arch, shape)))
 
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS)
@@ -197,8 +192,8 @@ def test_param_and_opt_specs_equal_reference(arch_id, monkeypatch):
     (dims that an axis does not divide included: 16 and 256 divide fewer
     of them than 1 and 8)."""
     _ref_specs(monkeypatch)
-    jarch, cfg, st = _state_meta(arch_id)
-    params = _meta(st["params"])
+    jarch, cfg, st, port_st = _states(arch_id)
+    params = port_st["params"]
     for name in MESHES:
         jm, tm = _meshes(name)
         for variant in ("tp", "fsdp"):
@@ -219,16 +214,17 @@ def test_param_and_opt_specs_equal_reference(arch_id, monkeypatch):
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS)
 def test_input_specs_equal_reference(arch_id, monkeypatch):
-    """``input_shardings`` of each of the arch's four cells (the
-    reference's ``input_specs``, as meta tensors) equals the reference's,
-    tp and fsdp, on five mesh shapes."""
+    """``input_shardings`` of each of the arch's four cells (the port's
+    ``input_specs`` against the reference's) equals the reference's, tp and
+    fsdp, on five mesh shapes."""
     _ref_specs(monkeypatch)
     from repro.launch.steps import adapt_config
-    jarch = jax_get_arch(arch_id)
+    jarch, arch = jax_get_arch(arch_id), get_arch(arch_id)
     for shape in jarch.shapes:
         cfg = adapt_config(jarch, shape)
         spec = input_specs(jarch, shape, cfg)
-        port_spec = {"inputs": _meta(spec["inputs"])}
+        port_spec = port_input_specs(arch, shape,
+                                     TS.adapt_config(arch, shape))
         for name in MESHES:
             jm, tm = _meshes(name)
             for variant in ("tp", "fsdp"):

@@ -297,8 +297,10 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
     3 and resumes from its step-2 checkpoint, trains through the
     training launcher (``repro_torch.launch.train.main``), runs a smoke
     SchNet train step (molecule and graph), reads the placement rules
-    (``repro_torch.dist.sharding``) on a 4 x 2 mesh's shape, and runs the
-    sharded two-tower top-k on a ``make_mesh(1, 1)`` gloo mesh."""
+    (``repro_torch.dist.sharding``) on a 4 x 2 mesh's shape, runs the
+    sharded two-tower top-k on a ``make_mesh(1, 1)`` gloo mesh, and traces
+    one cell through the dry run (``repro_torch.launch.dryrun``) on a fake
+    world of 4 x 2 ranks."""
     script = textwrap.dedent("""
         import sys
 
@@ -533,6 +535,12 @@ def test_port_imports_and_searches_without_jax_or_reference(tmp_path):
                 params, *batch.values())
             assert all(torch.equal(a, b) for a, b in zip(got, want))
             dist.destroy_process_group()
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell("two-tower-retrieval", "retrieval_cand", "4x2",
+                              mesh_shape=(4, 2), device="cpu", write=False,
+                              fit=False)
+        assert rec["ok"] and rec["flops"] > 0, rec.get("traceback")
+        assert not dist.is_initialized()
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not leaked, leaked
