@@ -8,7 +8,8 @@ Phases, one JSON line each:
   build     nvcc builds every kernel of the path from ``src/repro_torch``
             (one nvcc per source, all started together); the f32 route's
             library must hold TF32 mma instructions (``cuobjdump -sass``:
-            HMMA.1688.F32.TF32)
+            HMMA.1688.F32.TF32), and the mma route's both products on
+            Hopper's warpgroup MMA: HGMMA in its SASS and no HMMA
   index     a seeded splade_like corpus of 2^20 docs over the 30522-term
             BERT WordPiece vocabulary, indexed onto the card (fp32 BII);
             made by ``eval.make_graded_corpus`` (its postings and queries
@@ -4072,7 +4073,8 @@ def phase_model_kernels(dev) -> list:
     g = torch.Generator(device=dev).manual_seed(4321)
     sweep = []
     bf, f32 = torch.bfloat16, torch.float32
-    for (b, h, hkv, sq, skv, d, causal, off, dt, view) in [
+    # b, h, hkv, sq, skv, d, causal, kv_offset, dtype, view
+    rows = [
             (2, 8, 2, 100, 100, 64, True, 0, bf, False),  # ragged, group 4
             (2, 32, 8, 1, 4128, 128, True, 4100, bf, False),  # decode
             (3, 4, 4, 1, 77, 32, True, 76, f32, False),   # Sq = 1, group 1
@@ -4104,6 +4106,18 @@ def phase_model_kernels(dev) -> list:
             (1, 1, 1, 33, 300, 64, True, 200, bf, False),  # 33 rows
             (1, 4, 1, 15, 300, 64, True, 285, bf, False),  # 60 rows
             (1, 4, 2, 20, 130, 24, True, 40, bf, False),   # D 24, 40 rows
+            # mma at the edges of its swizzled layout: D 8 and 16 (DP 32,
+            # the 64-byte swizzle), D 96 (DP 128, the second atom half
+            # zero), exactly 64, 65 and 128 rows, Skv 65 (one key in the
+            # last tile), group 2, offsets on a 64-key boundary
+            (2, 4, 2, 50, 180, 8, True, 100, bf, False),  # D 8, group 2
+            (1, 8, 2, 40, 200, 16, False, 0, bf, False),  # D 16
+            (2, 6, 2, 90, 250, 96, True, 128, bf, False),  # D 96
+            (1, 2, 2, 64, 300, 64, True, 236, bf, False),  # 64 rows
+            (1, 1, 1, 65, 65, 64, True, 0, bf, False),    # 65 rows, Skv 65
+            (2, 4, 2, 64, 192, 128, True, 128, bf, False),  # 128 rows
+            (1, 4, 4, 80, 65, 32, False, 0, bf, False),   # Skv 65
+            (2, 8, 4, 100, 300, 64, True, 64, bf, False),  # group 2
             # f32: decode with more key tiles than warps, a last tile of
             # one key, D 48/128, group 1/4/8, bidirectional, views
             (2, 8, 2, 1, 1500, 64, True, 1499, f32, False),  # 12 tiles
@@ -4114,7 +4128,13 @@ def phase_model_kernels(dev) -> list:
             (2, 4, 2, 130, 190, 128, True, 60, f32, False),  # D 128 prefill
             (1, 8, 1, 2, 700, 64, True, 600, f32, False),   # 16 rows
             (1, 4, 4, 1, 333, 64, False, 0, f32, False),    # bidirectional
-            (4, 32, 8, 1, 4128, 64, True, 3000, f32, True)]:  # cache view
+            (4, 32, 8, 1, 4128, 64, True, 3000, f32, True)]  # cache view
+    # and the scale: d^-0.5 (None) as the models pass it, then mma at a
+    # negative and a zero scale
+    rows = [(*r, None) for r in rows] + [
+        (2, 8, 2, 100, 230, 64, True, 130, bf, False, -0.3),
+        (1, 4, 4, 90, 90, 32, False, 0, bf, False, 0.0)]
+    for (b, h, hkv, sq, skv, d, causal, off, dt, view, scale) in rows:
         if view:            # [B, S, H, D] tensors, read through views
             q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
                        .transpose(1, 2)
@@ -4124,7 +4144,7 @@ def phase_model_kernels(dev) -> list:
             q, k, v = (torch.randn(s, generator=g, device=dev).to(dt)
                        for s in ((b, h, sq, d), (b, hkv, skv, d),
                                  (b, hkv, skv, d)))
-        kw = dict(causal=causal, kv_offset=off)
+        kw = dict(causal=causal, kv_offset=off, sm_scale=scale)
         way = fa.route(q, k)
         ref = fa.flash_attention_plain(q, k, v, **kw)
         before = dict(fa.launches_by_route)
@@ -4139,11 +4159,13 @@ def phase_model_kernels(dev) -> list:
         sweep.append({"kernel": "flash_attention", "route": way,
                       "shape": [b, h, hkv, sq, skv, d], "causal": causal,
                       "kv_offset": off, "dtype": str(dt),
-                      "bshd_view": view, "max_abs_err": fa_close(
+                      "bshd_view": view, "sm_scale": scale,
+                      "max_abs_err": fa_close(
                           name, out, ref, fa_tolerance(q, k, v, ref, kw)),
                       "ms": timings(functools.partial(
                           fa._launch, way, q, k, v, out, causal,
-                          d ** -0.5, off))["ms"]})
+                          d ** -0.5 if scale is None else scale,
+                          off))["ms"]})
     require({r["route"] for r in sweep} == set(fa.ROUTES),
             "flash_attention sweep: a route never ran")
     # the last two rows take the scalar path: D 3, and a table that
@@ -4209,10 +4231,15 @@ def main() -> int:
     log = build.build_all()
     n_tf32 = sass_count(log[fa.SOURCES["f32"]]["path"], "HMMA.1688.F32.TF32")
     require(n_tf32 > 0, "flash_attention_f32: no TF32 mma in its SASS")
+    mma_sass = {op: sass_count(log[fa.SOURCES["mma"]]["path"], op)
+                for op in ("HGMMA", "HMMA")}
+    require(mma_sass["HGMMA"] > 0 and mma_sass["HMMA"] == 0,
+            f"flash_attention_mma: SASS {mma_sass}, expected wgmma (HGMMA) "
+            f"and no mma.sync (HMMA)")
     emit("build", seconds=time.perf_counter() - t0,
          sources={s: {"seconds": v["seconds"], "flags": build.flags(s),
                       "ptxas": v["ptxas"]} for s, v in log.items()},
-         f32_sass={"HMMA.1688.F32.TF32": n_tf32})
+         f32_sass={"HMMA.1688.F32.TF32": n_tf32}, mma_sass=mma_sass)
 
     reduced = ["q8 paths profiled at k=10 only"]
     if args.n_docs != 2 ** 20:

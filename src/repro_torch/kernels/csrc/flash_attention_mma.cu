@@ -1,7 +1,7 @@
 // Flash attention on the tensor cores for Hopper (sm_90a): the "mma" route
 // of the port's flash_attention, for bfloat16 inputs whose kv head has more
 // than 16 query rows (prefill, a cache-free forward, an encoder, a short
-// prompt; a block of 64 rows may be partly filled). Decode steps take
+// prompt; a block's rows may be partly filled). Decode steps take
 // flash_attention_split.cu, float32 inputs flash_attention_f32.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
@@ -22,33 +22,62 @@
 // at 4 x 4096 (0.28 ms at 989 TFLOP/s of bf16 on the tensor cores), where
 // the bytes (q, out and the visible K/V rows, ~0.15 GB) take 0.05 ms.
 //
-// Design (FlashAttention-2's, with mma.sync rather than wgmma):
-//   * Block: 4 warps, BQ = 64 flattened query rows (16 per warp), key
-//     tiles of BK = 64; templated over the padded head dim DP in
-//     {32, 64, 128}. Grid (B * Hkv, ceil(G * Sq / 64)), blockIdx.y walked
-//     in reverse so the longest causal blocks start first.
-//   * Q is staged once through shared memory into registers as ldmatrix
-//     A fragments of mma.sync.m16n8k16 (bf16 in, float32 accumulate).
-//   * K and V pass through a two-stage ring in shared memory filled by
-//     16-byte cp.async.cg copies: the next tile's copies are in flight
-//     while the current tile is computed. Rows are padded to DP + 8 bf16,
-//     so the 8 rows an ldmatrix reads fall on distinct banks. Rows past
-//     the last key and columns past d are zero-filled (cp.async with
-//     src-size 0).
-//   * S = Q K^T with K as the col operand (ldmatrix); the row max and sum
-//     are reduced over the 4 lanes of a quad; a row with no visible key so
-//     far uses 0 as its max (m_use).
-//   * P stays in registers: the float32 C fragment of S, converted to
-//     bf16 pairs, is the A fragment of the P V product; V comes in through
-//     ldmatrix.trans.
-//   * The per-element mask runs only on tiles that reach past the keys
-//     every row of the warp sees (a row's diagonal, or Skv); tiles past
-//     the block's last visible key are never loaded.
-//   * Shared memory: (BQ + 4 BK) (DP + 8) bf16: 45 KB at DP = 64, 85 KB
-//     at DP = 128. Inline PTX only (no CUTLASS/CuTe), so nvcc takes
-//     seconds.
+// Design: both products on wgmma (Hopper's warpgroup MMA, the only way to
+// the tensor cores' full rate) out of swizzled shared memory, fed by a
+// two-stage cp.async ring.
+//   * Block: one warpgroup (4 warps) per 64 flattened query rows, wgmma's
+//     M; warp w holds rows 16 w .. 16 w + 15 of its warpgroup's 64. Two
+//     warpgroups (128 rows) share each K/V stage at DP = 64, one at DP =
+//     32 and 128 (``warpgroups``). Key tiles of BK = 64; templated over
+//     the padded head dim DP in {32, 64, 128}. Grid (B * Hkv, ceil(G * Sq
+//     / rows per block)), blockIdx.y walked in reverse so the longest
+//     causal blocks start first.
+//   * S = Q K^T: DP / 16 wgmma.m64n64k16 (bf16 in, float32 accumulate), A
+//     (Q) and B (the K stage) both from shared memory, K-major (d
+//     contiguous). Q stays in shared memory: with Q as register fragments
+//     held across the key loop, ptxas (CUDA 12.9) gave P's fragments the
+//     same registers at DP = 64 (its PTX kept them apart), and on the card
+//     register Q was no faster.
+//   * O += P V: 4 wgmma.m64n{DP}k16 over the tile's 64 keys. A is P from
+//     registers: wgmma's float32 accumulator gives each thread, in every
+//     8-column group, the (row, column pair) positions of mma.sync's C
+//     fragment, so the bf16 pairs of P are the A fragments (mma.sync's
+//     m16n8k16 A layout, per warp) with no shuffle. B is the V stage,
+//     MN-major (d contiguous): transpose bit 1.
+//   * Shared memory in wgmma's canonical swizzled layout (``Tile``): the
+//     head dim in atoms of 64 columns (128-byte rows, the 128-byte
+//     swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8)); at DP = 128
+//     two atoms, 8 KB apart (V's leading byte offset); at DP = 32 one atom
+//     of 32 columns (64-byte rows, the 64-byte swizzle: chunk c ^ (r / 2 %
+//     4)). Each tile starts on a 1024-byte boundary; cp.async writes each
+//     16-byte chunk at its swizzled address, zero-filled past the last key
+//     and past d. The matrix descriptors (start address >> 4, leading and
+//     stride byte offsets, swizzle mode in bits 62-63) are built once; a
+//     stage or k-step adds its offset to the start address.
+//   * Per tile: cp.async.wait_group 0 and fence.proxy.async (cp.async
+//     writes through the generic proxy, wgmma reads through the async
+//     proxy), one __syncthreads (the tile has landed everywhere, and every
+//     warpgroup is done with the stage the next tile's copies then
+//     refill), S (wgmma.fence, commit_group, wait_group 0), the softmax in
+//     registers, P V (the same), so the next tile's copies overlap both
+//     products and the softmax.
+//   * Softmax: the row max and sum over the 4 lanes of a quad; a row with
+//     no visible key so far uses 0 as its max (m_use); each score scaled
+//     once to log2 units (any sign of the scale: the max is taken on the
+//     scaled scores), exp2 as one ex2.approx.ftz; acc is rescaled only
+//     where a row's max moved (else the factor is exactly 1). The
+//     per-element mask runs only on tiles that reach past the keys every
+//     row of the warp sees (a row's diagonal, or Skv); tiles past the
+//     block's last visible key are never loaded.
+//   * Shared memory: (4 + warpgroups) tiles of 64 DP bf16 (the ring, then
+//     a Q tile per warpgroup) + 1 KB of alignment: 21 KB at DP = 32, 49 KB
+//     at 64, 81 KB at 128. Registers (-Xptxas -v, CUDA 12.9): 127 at DP =
+//     32, 128 at 64 (the cap of two 256-thread blocks an SM), 190 at 128; no
+//     spills. Inline PTX only (no CUTLASS/CuTe), so nvcc takes seconds.
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,11 +86,11 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = kWarps * 16;   // query rows per block
-constexpr int kBK = 64;            // keys per tile
-constexpr int kPad = 8;            // bf16 of padding per shared-memory row
+constexpr int kThreads = 128;       // a warpgroup
+constexpr int kBQ = 64;             // query rows per warpgroup: wgmma's M
+constexpr int kStages = 2;          // the K/V ring
+constexpr int kBK = 64;             // keys per tile
+constexpr int kAlign = 1024;        // period of the 128-byte swizzle
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
@@ -73,6 +102,33 @@ struct Args {
   long long q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s;
   int causal, kv_offset;
   float sm_scale;
+};
+
+// A K, V or Q tile in shared memory: kBK rows (keys, or a warpgroup's
+// kBQ query rows) of DP bf16 in wgmma's canonical swizzled layout. The head dim is cut into atoms of kAtom
+// columns, each a [kBK][kAtom] block of kRowBytes rows; within an atom the
+// byte offset's bits 7.. (its 128-byte line, mod 8 or 4) are XORed into
+// its bits 4.. (the 16-byte chunk), as the 128- and 64-byte swizzles do.
+template <int DP>
+struct Tile {
+  static_assert(DP == 32 || DP == 64 || DP == 128, "padded head dim");
+  static_assert(kBQ == kBK, "Q tiles have the rows of K/V tiles");
+  static constexpr int kAtom = DP < 64 ? DP : 64;          // columns
+  static constexpr int kRowBytes = kAtom * 2;              // 64 or 128
+  static constexpr int kChunks = kRowBytes / 16;           // per atom row
+  static constexpr int kAtomBytes = kBK * kRowBytes;
+  static constexpr int kBytes = kBK * DP * 2;
+  static constexpr uint32_t kLines = kRowBytes == 128 ? 7 : 3;
+  // swizzle mode of a matrix descriptor: 1 = 128-byte, 2 = 64-byte
+  static constexpr uint64_t kMode = kRowBytes == 128 ? 1 : 2;
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;   // 8 rows
+
+  // byte offset of chunk c (columns 8 c .. 8 c + 7) of row r
+  __device__ __forceinline__ static uint32_t offset(int r, int c) {
+    const uint32_t lin = (c / kChunks) * kAtomBytes + r * kRowBytes +
+                         (c % kChunks) * 16;
+    return lin ^ (((lin >> 7) & kLines) << 4);
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -96,29 +152,143 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// this thread's shared-memory writes (cp.async's included) made visible
+// to the async proxy, which wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+// A shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (each >> 4) and the swizzle mode (bits 62-63).
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo, uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | mode << 62;
 }
 
-// c += a (16 x 16, row) b (16 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// 2^x with subnormal results flushed to zero: one MUFU.EX2
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product that owns it.
+template <int N>
+__device__ __forceinline__ void fence_registers(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+
+// d (64 x 64, float32) += a (64 x 16) b (16 x 64), both bf16 in shared
+// memory through their descriptors, both K-major; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x N, float32) += a (64 x 16, bf16 from registers: per warp the A
+// fragment of mma.sync.m16n8k16) b (16 x N, bf16 in shared memory through
+// ``desc``, MN-major: the transpose bit set), N = 2 x the length of d;
+// scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
 }
 
 // two floats rounded to bf16, ``lo`` in the low half (the lower column)
@@ -137,76 +307,50 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Copy keys k0 .. k0 + kBK - 1 of one kv head (rows of ``stride``) into a
-// [kBK][DP + kPad] tile; rows at or past ``n_keys`` and columns at or past
-// d are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_kv_tile(bf16* dst, const bf16* src,
-                                             long long stride, int k0,
-                                             int n_keys, int d, int tid) {
-  constexpr int CH = DP / 8;                 // 16-byte chunks per row
-  constexpr int IT = kBK * CH / kThreads;
-  static_assert(kBK * CH % kThreads == 0, "tile chunks split evenly");
-#pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int e = tid + it * kThreads;
-    const int r = e / CH, c = (e % CH) * 8;
-    const bool full = k0 + r < n_keys && c < d;
-    const bf16* from = full ? src + (long long)(k0 + r) * stride + c : src;
-    cp_async16(smem_addr(dst + r * (DP + kPad) + c), from, full);
-  }
-}
+// Warpgroups (of 64 query rows) per block: two at DP = 64, which share
+// each K/V stage (half the copies and barriers per row), one at DP = 32
+// (short sequences: fewer idle rows) and DP = 128 (its registers).
+constexpr int warpgroups(int dp) { return dp == 64 ? 2 : 1; }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+template <int DP, int WG>
+__global__ void __launch_bounds__(WG * kThreads, DP == 128 ? 1 : 4 / WG)
 flash_attention_mma_kernel(const Args a) {
-  constexpr int LD = DP + kPad;
-  constexpr int KC = DP / 16;     // 16-wide chunks of the head dim
-  constexpr int NT = kBK / 8;     // 8-key column tiles of S
-  constexpr int DT = DP / 8;      // 8-wide column tiles of the output
-  constexpr int CH = DP / 8;
+  using T = Tile<DP>;
+  constexpr int NTH = WG * kThreads;
+  constexpr int BQ = WG * kBQ;    // query rows per block
+  constexpr int KC = DP / 16;     // 16-wide k-steps of S = Q K^T
+  constexpr int NT = kBK / 8;     // 8-key column groups of S
+  constexpr int DT = DP / 8;      // 8-wide column groups of the output
+  constexpr int CH = DP / 8;      // 16-byte chunks of a row
 
+  // the ring (K stages, then V stages), then Q (a tile per warpgroup),
+  // each tile on a 1024-byte boundary
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [kBQ][LD]
-  bf16* ks = qs + kBQ * LD;                        // [2][kBK][LD]
-  bf16* vs = ks + 2 * kBK * LD;                    // [2][kBK][LD]
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t ks = (raw + kAlign - 1) & ~uint32_t(kAlign - 1);
+  const uint32_t vs = ks + kStages * T::kBytes;
+  const uint32_t qs = ks + 2 * kStages * T::kBytes;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
   const int b = blockIdx.x / a.hkv, hk = blockIdx.x % a.hkv;
   const int rows = a.group * a.sq;
-  const int r0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const bf16* q = a.q + b * a.q_b;
   const bf16* k = a.k + b * a.k_b + hk * a.k_h;
   const bf16* v = a.v + b * a.v_b + hk * a.v_h;
 
   // Keys this block needs: all of Skv, or (causal) up to its last row's
   // position. A block that spans two heads of the group holds row Sq - 1.
-  const int last = min(r0 + kBQ, rows) - 1;
+  const int last = min(r0 + BQ, rows) - 1;
   const int max_i = (r0 / a.sq == last / a.sq) ? last % a.sq : a.sq - 1;
   const int n_keys = a.causal ? min(a.skv, a.kv_offset + max_i + 1) : a.skv;
   const int n_tiles = (n_keys + kBK - 1) / kBK;
 
-  // Q (zero past the last row and past d) and tile 0 in the first group
-  for (int e = tid; e < kBQ * CH; e += kThreads) {
-    const int r = e / CH, c = (e % CH) * 8, rf = r0 + r;
-    const bool full = rf < rows && c < a.d;
-    const bf16* from = q;
-    if (full) {
-      const int g = rf / a.sq, i = rf - g * a.sq;
-      from = q + (long long)(hk * a.group + g) * a.q_h +
-             (long long)i * a.q_s + c;
-    }
-    cp_async16(smem_addr(qs + r * LD + c), from, full);
-  }
-  if (n_tiles > 0) {
-    load_kv_tile<DP>(ks, k, a.k_s, 0, n_keys, a.d, tid);
-    load_kv_tile<DP>(vs, v, a.v_s, 0, n_keys, a.d, tid);
-  }
-  cp_async_commit();
-
-  // This lane's rows: gr and gr + 8 of the warp's 16 (C-fragment layout).
+  // This lane's rows: gr and gr + 8 of the warp's 16 (the accumulator's
+  // layout, as mma.sync's C fragment).
   const int gr = lane >> 2, tq = lane & 3;
-  const int wr0 = r0 + warp * 16;
+  const int wr0 = r0 + wg * kBQ + warp * 16;
   const int row[2] = {wr0 + gr, wr0 + gr + 8};
   const int pos[2] = {a.kv_offset + row[0] % a.sq,
                       a.kv_offset + row[1] % a.sq};
@@ -218,113 +362,173 @@ flash_attention_mma_kernel(const Args a) {
       a.causal ? min(n_keys, a.kv_offset + min_i + 1) : n_keys;
   const float scale = a.sm_scale * kLog2e;   // scores in log2 units
 
-  float acc[DT][4];
-#pragma unroll
-  for (int t = 0; t < DT; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  uint32_t qf[KC][4];
+  // Q's and stage 0's descriptors; stage 1 is T::kBytes further. Q and K:
+  // K-major, rows of kRowBytes, 8-row groups kGroupBytes apart (the
+  // leading offset is unused). V: MN-major, 8-key groups kGroupBytes
+  // apart, atoms of the head dim kAtomBytes apart.
+  const uint64_t qdesc = descriptor(qs + wg * T::kBytes, 16, T::kGroupBytes,
+                                    T::kMode);
+  const uint64_t kdesc = descriptor(ks, 16, T::kGroupBytes, T::kMode);
+  const uint64_t vdesc = descriptor(vs, T::kAtomBytes, T::kGroupBytes,
+                                    T::kMode);
+  constexpr uint64_t kStage = T::kBytes >> 4;      // in 16-byte units
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kBK, st = tile & 1;
-    if (tile + 1 < n_tiles) {
-      load_kv_tile<DP>(ks + (st ^ 1) * kBK * LD, k, a.k_s, k0 + kBK, n_keys,
-                       a.d, tid);
-      load_kv_tile<DP>(vs + (st ^ 1) * kBK * LD, v, a.v_s, k0 + kBK, n_keys,
-                       a.d, tid);
+  // This thread's IT 16-byte chunks of a K or V tile: row, swizzled
+  // offset, whether the chunk lies inside d, and its first key's address.
+  constexpr int IT = kBK * CH / NTH;
+  static_assert(kBK * CH % NTH == 0, "tile chunks split evenly");
+  int lrow[IT];
+  uint32_t loff[IT];
+  bool lcol[IT];
+  const bf16* kp[IT];
+  const bf16* vp[IT];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int e = tid + it * NTH, r = e / CH, c = e % CH;
+    lrow[it] = r;
+    loff[it] = T::offset(r, c);
+    lcol[it] = c * 8 < a.d;
+    kp[it] = k + (long long)r * a.k_s + c * 8;
+    vp[it] = v + (long long)r * a.v_s + c * 8;
+  }
+  // tile j's K and V into stage j % 2, as one cp.async group (empty past
+  // the last tile); rows at or past n_keys and columns at or past d are
+  // zero-filled
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      const int k0 = j * kBK;
+      const uint32_t kst = ks + (j % kStages) * T::kBytes;
+      const uint32_t vst = vs + (j % kStages) * T::kBytes;
+      const long long ko = (long long)k0 * a.k_s, vo = (long long)k0 * a.v_s;
+#pragma unroll
+      for (int it = 0; it < IT; ++it) {
+        const bool full = lcol[it] && k0 + lrow[it] < n_keys;
+        cp_async16(kst + loff[it], full ? kp[it] + ko : k, full);
+        cp_async16(vst + loff[it], full ? vp[it] + vo : v, full);
+      }
     }
     cp_async_commit();
-    cp_async_wait<1>();            // this tile's group has landed
-    __syncthreads();
-    if (tile == 0) {
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        ldmatrix_x4(qf[kc], smem_addr(qs + (warp * 16 + (lane & 15)) * LD +
-                                      kc * 16 + (lane >> 4) * 8));
-    }
-    const bf16* kt = ks + st * kBK * LD;
-    const bf16* vt = vs + st * kBK * LD;
+  };
 
-    // S = Q K^T: key tiles 2 np and 2 np + 1 from one ldmatrix.x4
-    float s[NT][4];
+  // Q (zero past the last row and past d) and tile 0 in the first group
+  for (int e = tid; e < BQ * CH; e += NTH) {
+    const int r = e / CH, c = e % CH, rf = r0 + r;
+    const bool full = rf < rows && c * 8 < a.d;
+    const bf16* from = q;
+    if (full) {
+      const int g = rf / a.sq, i = rf - g * a.sq;
+      from = q + (long long)(hk * a.group + g) * a.q_h +
+             (long long)i * a.q_s + c * 8;
+    }
+    cp_async16(qs + (r / kBQ) * T::kBytes + T::offset(r % kBQ, c), from,
+               full);
+  }
+  load_tile(0);
+
+  float acc[DP / 2];   // acc[4 t + e]: column group t, as mma.sync's C
 #pragma unroll
-    for (int t = 0; t < NT; ++t)
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[kBK / 2];    // S of the tile, laid out as acc
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+  for (int i = 0; i < kBK / 2; ++i) s[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBK, st = j % kStages;
+    cp_async_wait<0>();            // this thread's part of tile j landed
+    fence_proxy_async();
+    // every thread's part of tile j is visible, and every warpgroup is done
+    // with tile j - 1, whose stage the next load refills
+    __syncthreads();
+    load_tile(j + 1);
+
+    // S = Q K^T: k-step kc reads columns 16 kc .. 16 kc + 15 of Q and K
+    wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      constexpr int per_atom = T::kAtom / 16;
+      const uint32_t off = (kc / per_atom) * T::kAtomBytes +
+                           (kc % per_atom) * 32;
+      wgmma_ss(s, qdesc + (off >> 4), kdesc + st * kStage + (off >> 4),
+               kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_registers(s);
+
+    // The online softmax. Only tiles that reach past the keys every row
+    // of the warp sees are masked.
+    float corr[2];
+    uint32_t pf[NT][2];      // P rounded to bf16 pairs: the A fragments
+    auto softmax = [&](auto mask_tag) {
+      constexpr bool kMask = decltype(mask_tag)::value;
+      auto hidden = [&](int t, int e) {
+        const int key = k0 + t * 8 + 2 * tq + (e & 1);
+        return kMask && (key >= n_keys || (a.causal && key > pos[e >> 1]));
+      };
+      // the scores scaled (log2 units), and the tile's row maxima. Each
+      // scaled score is rounded before the max is subtracted (__fmul_rn:
+      // nvcc may not fuse the two into a multiply-add, which rounds once).
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, smem_addr(
-            kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-            kc * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * np], qf[kc], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kc], kb[2], kb[3]);
+      for (int t = 0; t < NT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * t + e] = __fmul_rn(s[4 * t + e], scale);
+          mx[e >> 1] = fmaxf(mx[e >> 1],
+                             hidden(t, e) ? -INFINITY : s[4 * t + e]);
+        }
       }
+      // the new maxima (0 for a row with no visible key so far: m_use),
+      // and the factor on the running state
+      float m_use[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+        corr[r] = exp2_ftz(m[r] - m_use[r]);
+        m[r] = m_new;
+        l[r] *= corr[r];             // this lane's share of the row's sum
+      }
+      // P in float32 for l, rounded to bf16 pairs
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = hidden(t, e) ? 0.f
+                              : exp2_ftz(s[4 * t + e] - m_use[e >> 1]);
+        l[0] += p[0] + p[1];
+        l[1] += p[2] + p[3];
+        pf[t][0] = pack_bf16(p[0], p[1]);
+        pf[t][1] = pack_bf16(p[2], p[3]);
+      }
+    };
+    if (k0 + kBK > seen_by_all)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
+    // rescale acc where a row's maximum moved (a factor of exactly 1
+    // leaves it as it is)
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
     }
 
-    // scale, mask, and the tile's row maxima
-    const bool masked = k0 + kBK > seen_by_all;
-    float mx[2] = {-INFINITY, -INFINITY};
+    // acc += P V: k-step kk takes keys 16 kk .. 16 kk + 15 (rows of the V
+    // stage), all DP columns
+    fence_registers(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[t][e] * scale;
-        if (masked) {
-          const int key = k0 + t * 8 + 2 * tq + (e & 1);
-          if (key >= n_keys || (a.causal && key > pos[e >> 1])) x = -INFINITY;
-        }
-        s[t][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    // online softmax: rescale the running state to the new maxima
-    float m_use[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2f(m[r] - m_use[r]);
-      m[r] = m_new;
-      l[r] *= corr;                  // this lane's share of the row's sum
-#pragma unroll
-      for (int t = 0; t < DT; ++t) {
-        acc[t][2 * r] *= corr;
-        acc[t][2 * r + 1] *= corr;
-      }
-    }
-    // P in float32 for l, rounded to bf16 pairs: the A fragments of P V
-    uint32_t pf[NT][2];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const float p0 = exp2f(s[t][0] - m_use[0]);
-      const float p1 = exp2f(s[t][1] - m_use[0]);
-      const float p2 = exp2f(s[t][2] - m_use[1]);
-      const float p3 = exp2f(s[t][3] - m_use[1]);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      pf[t][0] = pack_bf16(p0, p1);
-      pf[t][1] = pack_bf16(p2, p3);
-    }
-    // acc += P V: keys 16 kk .. 16 kk + 15, output tiles 2 dp, 2 dp + 1
-#pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
+    for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint32_t pa[4] = {pf[2 * kk][0], pf[2 * kk][1],
                               pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, smem_addr(
-            vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-            dp * 16 + (lane >> 4) * 8));
-        mma_bf16(acc[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vb[2], vb[3]);
-      }
+      wgmma_rs(acc, pa, vdesc + st * kStage +
+                                 ((kk * 2 * T::kGroupBytes) >> 4), 1);
     }
-    __syncthreads();     // this stage is consumed before it is refilled
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_registers(acc);
   }
   cp_async_wait<0>();
 
@@ -341,21 +545,22 @@ flash_attention_mma_kernel(const Args a) {
       const int col = t * 8 + 2 * tq;
       if (col < a.d)
         *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
-            acc[t][2 * r] / denom, acc[t][2 * r + 1] / denom);
+            acc[4 * t + 2 * r] / denom, acc[4 * t + 2 * r + 1] / denom);
     }
   }
 }
 
 template <int DP>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-  const size_t smem = (size_t)(kBQ + 4 * kBK) * (DP + kPad) * sizeof(bf16);
-  auto kern = flash_attention_mma_kernel<DP>;
+  constexpr int WG = warpgroups(DP);
+  const size_t smem = kAlign + (2 * kStages + WG) * Tile<DP>::kBytes;
+  auto kern = flash_attention_mma_kernel<DP, WG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = a.group * a.sq;
-  const dim3 grid(batch * a.hkv, (rows + kBQ - 1) / kBQ);
-  kern<<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid(batch * a.hkv, (rows + WG * kBQ - 1) / (WG * kBQ));
+  kern<<<grid, WG * kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -23,8 +23,9 @@ routes, chosen by ``route(q, k)`` from shape and dtype alone:
   float32 partial (m, l, acc) to scratch, and a second kernel joins them:
   two device launches per call.
 - "mma" (``csrc/flash_attention_mma.cu``): every other bfloat16 call, on
-  the tensor cores (mma.sync, a two-stage cp.async K/V ring): prefill, a
-  cache-free forward, an encoder, a short prompt.
+  the tensor cores (both products on Hopper's wgmma out of swizzled shared
+  memory, a two-stage cp.async K/V ring): prefill, a cache-free forward,
+  an encoder, a short prompt.
 - "f32" (``csrc/flash_attention_f32.cu``): every float32 call, on the
   tensor cores at float32 accuracy (three TF32 products per product); at
   most 16 rows per kv head, the block's warps split the keys.

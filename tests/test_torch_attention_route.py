@@ -13,6 +13,7 @@ and its output must lie within their bound of the port's plain version
 shapes hold at least 512 keys, where the averages are long and the
 outputs small."""
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 
 
@@ -140,6 +142,29 @@ def test_tolerance_float32_and_simt_unchanged(dtype):
     for name in ("wgmma", "simt"):
         with pytest.raises(ValueError, match="route"):
             fa.tolerance(q, k, v, ref, name, **kw)
+
+
+def _code(source: str) -> str:
+    """A CUDA source with its // and /* */ comments taken out."""
+    text = (build.CSRC / source).read_text()
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+@pytest.mark.parametrize("source", build.SOURCES)
+def test_kernels_target_sm90a_and_mma_issues_wgmma(source):
+    """Every kernel builds for sm_90a alone (wgmma exists only there;
+    plain sm_90 refuses it), and the "mma" route's source issues both of
+    its products as wgmma.mma_async, with no mma.sync left."""
+    flags = build.flags(source)
+    targets = [flags[i + 1] for i, f in enumerate(flags) if f == "-gencode"]
+    assert targets == ["arch=compute_90a,code=sm_90a"]
+    assert not any(f.startswith(("-arch", "--gpu-architecture"))
+                   for f in flags)
+    if source == fa.SOURCES["mma"]:
+        code = _code(source)
+        assert code.count("wgmma.mma_async") >= 2     # S and P V
+        assert "mma.sync" not in code
 
 
 def test_cpu_call_moves_no_route_counter():

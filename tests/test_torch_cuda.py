@@ -10,6 +10,9 @@ dependencies exist:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,7 @@ from repro_torch.data import make_corpus
 from repro_torch.index import (compress_index, encode_runs,
                                from_encoded_grids, gather_tile_q_raw)
 from repro_torch.configs import get_arch
+from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import guided_score as gs
@@ -725,6 +729,18 @@ FA_CASES = [
     (1, 16, 2, 333, 333, 64, False, 0, "mma"),    # group 8, bidirectional
     (1, 4, 1, 16, 1000, 64, True, 984, "mma"),    # 64 rows over a long cache
     (1, 8, 8, 64, 64, 128, True, 0, "mma"),       # one full block
+    # "mma" at the edges of its swizzled shared-memory layout: D 8 and 16
+    # (DP 32, the 64-byte swizzle), D 96 (DP 128: the second 64-column
+    # atom half zero-filled); exactly 64, 65 and 128 flattened rows; Skv
+    # 65 (one key in the last tile); group 2; offsets on a 64-key boundary
+    (2, 4, 2, 50, 180, 8, True, 100, "mma"),      # D 8, group 2
+    (1, 8, 2, 40, 200, 16, False, 0, "mma"),      # D 16, bidirectional
+    (2, 6, 2, 90, 250, 96, True, 128, "mma"),     # D 96, offset 128
+    (1, 2, 2, 64, 300, 64, True, 236, "mma"),     # 64 rows, group 1
+    (1, 1, 1, 65, 65, 64, True, 0, "mma"),        # 65 rows, Skv 65
+    (2, 4, 2, 64, 192, 128, True, 128, "mma"),    # 128 rows, offset 128
+    (1, 4, 4, 80, 65, 32, False, 0, "mma"),       # Skv 65, bidirectional
+    (2, 8, 4, 100, 300, 64, True, 64, "mma"),     # group 2, offset 64
 ]
 
 
@@ -841,6 +857,28 @@ def test_flash_attention_bf16_above_16_rows_take_mma_on_card(
     q, k, v = _fa_case(cuda, b, h, hkv, sq, skv, d, torch.bfloat16, False,
                        seed=sq + d)
     _fa_on_route(q, k, v, "mma", dict(causal=True, kv_offset=off))
+
+
+def test_flash_attention_mma_runs_on_wgmma_on_card(cuda):
+    """Both products of the "mma" route are Hopper warpgroup MMAs: the
+    built library's SASS holds HGMMA and no HMMA (an mma.sync)."""
+    log = kernel_build.build_all()
+    cuobjdump = Path(kernel_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", log[fa.SOURCES["mma"]]["path"]],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    assert sass.count("HGMMA") > 0
+    assert sass.count("HMMA") == 0
+
+
+@pytest.mark.parametrize("sm_scale", [-0.3, 0.0, 1.5])
+def test_flash_attention_mma_any_scale_on_card(cuda, sm_scale):
+    """The "mma" route at a negative, a zero and a large scale (the models
+    pass d^-0.5): within its bound of the plain version at that scale."""
+    q, k, v = _fa_case(cuda, 2, 8, 2, 100, 230, 64, torch.bfloat16, False,
+                       seed=7)
+    _fa_on_route(q, k, v, "mma",
+                 dict(causal=True, kv_offset=130, sm_scale=sm_scale))
 
 
 def test_flash_attention_split_reads_cache_views_on_card(cuda):
