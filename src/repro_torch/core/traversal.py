@@ -30,7 +30,7 @@ the host:
     by one ``guided_score_chunk`` launch with chunk-start thresholds.
   - ``retrieve_sequential``: per-query host loop with physical skipping.
 
-``score_tile`` scores through the ``guided_score_tile`` kernel or its
+``_tile_step`` scores through the ``guided_score_tile`` kernel or its
 plain PyTorch version, as ``use_kernel`` chooses. Either index type is
 served: the fp32 ``BlockedImpactIndex`` and the compressed
 ``repro_torch.index.CompressedImpactIndex`` share the planner metadata and
@@ -41,6 +41,18 @@ rows to the decode-in-kernel ``guided_score_tile_q`` /
 presence and postings stats. Top-k selection uses a stable descending
 sort, which keeps the reference's tie rule: equal values keep their
 order, lower index first.
+
+A tracer (``repro_torch.obs.Tracer``; ``NULL_TRACER``, the default, records
+nothing) passed to ``retrieve_batched`` rides on the ``Context`` and
+records a span at each step of a call, all named under ``rt.``:
+``rt.upload`` (the query arrays to the device), ``rt.plan`` (the plans and
+schedules), ``rt.chunk.test`` (the chunk loop's test and its sync),
+``rt.chunk`` (one dispatched chunk; ``chunk``, its number) and, inside it
+or for each tile of the other traversals, ``rt.chunk.gather``
+(``step_inputs``), ``rt.chunk.score`` (the scorer's launch),
+``rt.chunk.counts``, ``rt.chunk.select`` (``_candidates``) and
+``rt.chunk.merge`` (the queue merge and the stat sums); ``rt.copy`` (the
+results to the host). The spans add no device op and no sync.
 """
 from __future__ import annotations
 
@@ -54,6 +66,7 @@ import torch
 from ..kernels.guided_score import (guided_score_chunk, guided_score_chunk_q,
                                     guided_score_tile, guided_score_tile_plain,
                                     guided_score_tile_q)
+from ..obs.spans import NULL_TRACER
 from .index import BlockedImpactIndex, dispatch_gather
 from .plan import (QueryPlan, chunk_schedule, essential_terms,
                    freeze_bounds, plan_query, term_bounds, tile_schedule,
@@ -167,26 +180,6 @@ def _candidates(out, counts, kq: int):
             _tile_topk(r, rank_mask, kq), stats)
 
 
-def score_tile(offs, wb, wl, essential, prefix_beta, th_lo,
-               alpha, beta, gamma, *, tile_size: int, kq: int,
-               use_kernel: bool = False):
-    """Score one tile per query. See the module docstring for the levels.
-
-    offs:        [B, Nq, P] int32 local doc offsets (-1 = padding)
-    wb, wl:      [B, Nq, P] f32 query-weighted posting weights (0 = padding)
-    essential:   [B, Nq] bool essential-term mask (planner, sorted order)
-    prefix_beta: [B, Nq] f32 inclusive beta-bound prefix sums (planner)
-    th_lo:       [B] f32
-    ``use_kernel`` scores through the ``guided_score_tile`` kernel (its
-    plain version on CPU tensors), else through the plain version.
-    Returns three (vals, local_idx) candidate sets + [B, 4] stat counters.
-    """
-    score = guided_score_tile if use_kernel else guided_score_tile_plain
-    out = score(offs, wb, wl, essential.float(), prefix_beta, th_lo,
-                alpha, beta, gamma, tile_size=tile_size)
-    return _candidates(out, _offs_counts(offs, tile_size), kq)
-
-
 @dataclasses.dataclass
 class Context:
     """What every step of one retrieve call reads: the index, the plans,
@@ -203,6 +196,7 @@ class Context:
     kq: int
     bound_mode: str
     use_kernel: bool = False
+    tracer: object = NULL_TRACER   # records the steps' spans
 
     @property
     def raw_q8(self) -> bool:
@@ -301,22 +295,34 @@ def step_inputs(ctx: Context, carry: Carry, tiles,
 def _tile_step(ctx: Context, carry: Carry, tile,
                n_valid: int | None = None, th_floor=None) -> Carry:
     """One tile visit per row (``tile`` [B]): plan bounds -> skip test ->
-    score -> queue merge."""
-    x = step_inputs(ctx, carry, tile, n_valid, th_floor)
+    score -> queue merge. See the module docstring for the levels. The
+    scorer is the ``guided_score_tile`` kernel (its plain version on CPU
+    tensors) when ``ctx.use_kernel``, else the plain version; on a q8
+    index with ``use_kernel``, ``guided_score_tile_q``."""
+    tr = ctx.tracer
+    with tr.span("rt.chunk.gather"):
+        x = step_inputs(ctx, carry, tile, n_valid, th_floor)
     coef = (ctx.alpha, ctx.beta, ctx.gamma)
     tile_size = ctx.index.tile_size
-    if ctx.raw_q8:
-        out = guided_score_tile_q(*x.rows, ctx.plan.qwb, ctx.plan.qwl,
-                                  x.essential.float(), x.prefix_beta,
-                                  x.th_lo, *coef, tile_size=tile_size)
-        *cands, stats = _candidates(out, _row5_counts(out), ctx.kq)
-    else:
-        *cands, stats = score_tile(*x.rows, x.essential, x.prefix_beta,
-                                   x.th_lo, *coef, tile_size=tile_size,
-                                   kq=ctx.kq, use_kernel=ctx.use_kernel)
-    cands = [(v[:, None], i[:, None]) for v, i in cands]
-    _merge_candidates(ctx, carry, cands, tile[:, None], x.skip[:, None])
-    _add_stats(carry, stats[:, None], x.skip[:, None])
+    with tr.span("rt.chunk.score"):
+        if ctx.raw_q8:
+            out = guided_score_tile_q(*x.rows, ctx.plan.qwb, ctx.plan.qwl,
+                                      x.essential.float(), x.prefix_beta,
+                                      x.th_lo, *coef, tile_size=tile_size)
+        else:
+            score = (guided_score_tile if ctx.use_kernel
+                     else guided_score_tile_plain)
+            out = score(*x.rows, x.essential.float(), x.prefix_beta,
+                        x.th_lo, *coef, tile_size=tile_size)
+    with tr.span("rt.chunk.counts"):
+        counts = (_row5_counts(out) if ctx.raw_q8
+                  else _offs_counts(x.rows[0], tile_size))
+    with tr.span("rt.chunk.select"):
+        *cands, stats = _candidates(out, counts, ctx.kq)
+    with tr.span("rt.chunk.merge"):
+        cands = [(v[:, None], i[:, None]) for v, i in cands]
+        _merge_candidates(ctx, carry, cands, tile[:, None], x.skip[:, None])
+        _add_stats(carry, stats[:, None], x.skip[:, None])
     return carry
 
 
@@ -343,19 +349,25 @@ def _chunk_step_fused(ctx: Context, carry: Carry, tiles_chunk,
     so rank-safe configs stay bound-exact; guided configs follow a slightly
     different, still bound-safe, threshold trajectory."""
     tile_size = ctx.index.tile_size
-    x = step_inputs(ctx, carry, tiles_chunk, n_valid, th_floor)
-    args = (x.essential.float(), x.prefix_beta, x.skip.to(torch.int32),
-            x.th_lo, ctx.alpha, ctx.beta, ctx.gamma)
-    if ctx.raw_q8:
-        out = guided_score_chunk_q(*x.rows, ctx.plan.qwb, ctx.plan.qwl,
-                                   *args, tile_size=tile_size)
-        counts = _row5_counts(out)
-    else:
-        out = guided_score_chunk(*x.rows, *args, tile_size=tile_size)
-        counts = _offs_counts(x.rows[0], tile_size)
-    *cands, stats = _candidates(out, counts, ctx.kq)
-    _merge_candidates(ctx, carry, cands, tiles_chunk, x.skip)
-    _add_stats(carry, stats, x.skip)
+    tr = ctx.tracer
+    with tr.span("rt.chunk.gather"):
+        x = step_inputs(ctx, carry, tiles_chunk, n_valid, th_floor)
+    with tr.span("rt.chunk.score"):
+        args = (x.essential.float(), x.prefix_beta, x.skip.to(torch.int32),
+                x.th_lo, ctx.alpha, ctx.beta, ctx.gamma)
+        if ctx.raw_q8:
+            out = guided_score_chunk_q(*x.rows, ctx.plan.qwb, ctx.plan.qwl,
+                                       *args, tile_size=tile_size)
+        else:
+            out = guided_score_chunk(*x.rows, *args, tile_size=tile_size)
+    with tr.span("rt.chunk.counts"):
+        counts = (_row5_counts(out) if ctx.raw_q8
+                  else _offs_counts(x.rows[0], tile_size))
+    with tr.span("rt.chunk.select"):
+        *cands, stats = _candidates(out, counts, ctx.kq)
+    with tr.span("rt.chunk.merge"):
+        _merge_candidates(ctx, carry, cands, tiles_chunk, x.skip)
+        _add_stats(carry, stats, x.skip)
     return carry
 
 
@@ -372,15 +384,23 @@ def _chunk_while(advance, chunk_ub, carry: Carry, factor, th_floor=None):
     chunks that were live when dispatched.
 
     The test reads one bool back to the host per chunk: a device sync per
-    chunk."""
+    chunk. Where the caller sets ``advance.tracer``, each test is an
+    ``rt.chunk.test`` span and each dispatched chunk an ``rt.chunk`` span
+    beside it, so the ``rt.chunk`` spans count the dispatched chunks."""
+    tr = getattr(advance, "tracer", NULL_TRACER)
     disp = torch.zeros(chunk_ub.shape[0], dtype=torch.float32,
                        device=chunk_ub.device)
     for i in range(chunk_ub.shape[1]):
-        active = chunk_ub[:, i] > _floored(carry.gv, th_floor) * factor
-        if not bool(active.any()):
+        with tr.span("rt.chunk.test"):
+            active = chunk_ub[:, i] > _floored(carry.gv, th_floor) * factor
+            live = bool(active.any())
+        if not live:
             break
-        carry = advance(i, carry)
-        disp = disp + active.float()
+        with tr.span("rt.chunk") as span:
+            if tr.enabled:
+                span.set(chunk=i)
+            carry = advance(i, carry)
+            disp = disp + active.float()
     return carry, disp
 
 
@@ -393,7 +413,7 @@ def _f32(x) -> float:
 
 
 def make_context(index, q_terms, qw_b, qw_l, params: TwoLevelParams,
-                 k: int, use_kernel: bool) -> Context:
+                 k: int, use_kernel: bool, tracer=NULL_TRACER) -> Context:
     """Plan the batch and fix the coefficients of one retrieve call."""
     alpha = _f32(params.alpha)
     plan = plan_query(q_terms, qw_b, qw_l, index.sigma_b, index.sigma_l,
@@ -402,7 +422,7 @@ def make_context(index, q_terms, qw_b, qw_l, params: TwoLevelParams,
                 beta=_f32(params.beta), gamma=_f32(params.gamma),
                 factor=_f32(params.threshold_factor), k=k,
                 kq=min(k, index.tile_size), bound_mode=params.bound_mode,
-                use_kernel=use_kernel)
+                use_kernel=use_kernel, tracer=tracer)
 
 
 def _as_tensor(x, dtype, device) -> torch.Tensor:
@@ -416,7 +436,8 @@ def retrieve_batched(index: BlockedImpactIndex, q_terms, qw_b, qw_l,
                      use_kernel: bool = False,
                      k: int | None = None,
                      traversal: str = "full",
-                     chunk_tiles: int | None = None) -> RetrievalResult:
+                     chunk_tiles: int | None = None,
+                     tracer=NULL_TRACER) -> RetrievalResult:
     """Batched retrieval: q_terms [B, Nq] int32 (pad with qw = 0).
 
     ``index`` may be a ``BlockedImpactIndex`` or a
@@ -437,48 +458,59 @@ def retrieve_batched(index: BlockedImpactIndex, q_terms, qw_b, qw_l,
       - ``"chunked_fused"``: the same chunk loop, each chunk scored by one
         ``guided_score_chunk`` launch with chunk-start thresholds.
     ``chunk_tiles`` overrides ``params.chunk_tiles`` for this call.
+    ``tracer`` records the call's spans (module docstring).
     """
     if traversal not in TRAVERSALS:
         raise ValueError(f"traversal must be in {TRAVERSALS}, "
                          f"got {traversal!r}")
     dev = index.device
-    q_terms = _as_tensor(q_terms, torch.int32, dev)
-    qw_b = _as_tensor(qw_b, torch.float32, dev)
-    qw_l = _as_tensor(qw_l, torch.float32, dev)
+    with tracer.span("rt.upload"):
+        q_terms = _as_tensor(q_terms, torch.int32, dev)
+        qw_b = _as_tensor(qw_b, torch.float32, dev)
+        qw_l = _as_tensor(qw_l, torch.float32, dev)
     k = resolve_k(params, k)
-    ctx = make_context(index, q_terms, qw_b, qw_l, params, k, use_kernel)
+    with tracer.span("rt.plan"):
+        ctx = make_context(index, q_terms, qw_b, qw_l, params, k, use_kernel,
+                           tracer)
+        if traversal == "full":
+            tiles = tile_schedule(ctx.plan, index.tile_max_b,
+                                  index.tile_max_l, ctx.alpha, index.n_tiles,
+                                  params.schedule)
+        else:
+            ct = int(chunk_tiles if chunk_tiles is not None
+                     else params.chunk_tiles)
+            chunks, chunk_ub = chunk_schedule(ctx.plan, index.tile_max_b,
+                                              index.tile_max_l, ctx.alpha,
+                                              index.n_tiles, ct)
     b = q_terms.shape[0]
     carry = Carry.init(b, k, dev)
     disp = None
     if traversal == "full":
-        tiles = tile_schedule(ctx.plan, index.tile_max_b, index.tile_max_l,
-                              ctx.alpha, index.n_tiles, params.schedule)
         for t in range(index.n_tiles):
             carry = _tile_step(ctx, carry, tiles[:, t])
     else:
-        ct = int(chunk_tiles if chunk_tiles is not None
-                 else params.chunk_tiles)
-        chunks, chunk_ub = chunk_schedule(ctx.plan, index.tile_max_b,
-                                          index.tile_max_l, ctx.alpha,
-                                          index.n_tiles, ct)
         step = (_chunk_step_fused if traversal == "chunked_fused"
                 else _chunk_scan)
 
         def advance(i, carry):
             return step(ctx, carry, chunks[:, i], index.n_tiles)
+        advance.tracer = tracer
         carry, disp = _chunk_while(advance, chunk_ub, carry, ctx.factor)
 
-    st = carry.st.cpu().numpy()
-    stats = dict(zip(STAT_KEYS, st.T))
-    stats["n_tiles"] = np.full(b, index.n_tiles, np.float32)
-    if disp is not None:
-        stats["chunks_dispatched"] = disp.cpu().numpy()
-        stats["n_chunks"] = np.full(b, -(-index.n_tiles // ct), np.float32)
-    return RetrievalResult(ids=index.to_orig(carry.ri.cpu().numpy()),
-                           scores=carry.rv.cpu().numpy(),
-                           global_ids=index.to_orig(carry.gi.cpu().numpy()),
-                           local_ids=index.to_orig(carry.li.cpu().numpy()),
-                           stats=stats)
+    with tracer.span("rt.copy"):
+        st = carry.st.cpu().numpy()
+        stats = dict(zip(STAT_KEYS, st.T))
+        stats["n_tiles"] = np.full(b, index.n_tiles, np.float32)
+        if disp is not None:
+            stats["chunks_dispatched"] = disp.cpu().numpy()
+            stats["n_chunks"] = np.full(b, -(-index.n_tiles // ct),
+                                        np.float32)
+        return RetrievalResult(
+            ids=index.to_orig(carry.ri.cpu().numpy()),
+            scores=carry.rv.cpu().numpy(),
+            global_ids=index.to_orig(carry.gi.cpu().numpy()),
+            local_ids=index.to_orig(carry.li.cpu().numpy()),
+            stats=stats)
 
 
 # ---------------------------------------------------------------------------

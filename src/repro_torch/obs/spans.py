@@ -22,12 +22,21 @@ finished spans append FIFO and the oldest spans fall off
 deterministically once the ring is full. Spans are only *in* the ring
 once finished; an abandoned started span costs nothing.
 
+``Tracer.span`` nests: a span opened inside another on the same thread,
+with no ``parent`` or ``trace_id`` of its own, becomes the open span's
+child. With ``profile=True`` each ``span`` also opens a
+``torch.profiler.record_function`` range of the same name, so a profiler
+trace places the program's spans on the clock of its host ops and
+device kernels (the ring keeps ``now``'s clock). torch is imported only
+then: the rest of this module needs the standard library alone.
+
 The disabled path is :data:`NULL_TRACER`, a module-level
 :class:`NullTracer` singleton: ``enabled`` is False, ``start`` /
-``emit`` return the shared immutable no-op span, and nothing
-allocates. Callers guard attribute assembly with
-``if tracer.enabled:`` so a disabled pipeline pays a single attribute
-load per request — the overhead-guard test pins this.
+``emit`` return the shared immutable no-op span, ``span`` the shared
+no-op context manager that yields it, and nothing allocates. Callers
+guard attribute assembly with ``if tracer.enabled:`` so a disabled
+pipeline pays a single attribute load per request — the overhead-guard
+test pins this.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ import math
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 
 class Span:
@@ -97,6 +106,10 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
+# What the disabled tracer's ``span`` returns, every call: entering it
+# yields the no-op span.
+_NULL_SPAN_CONTEXT = nullcontext(NULL_SPAN)
+
 
 class Tracer:
     """Span recorder over a bounded ring buffer.
@@ -104,12 +117,14 @@ class Tracer:
     ``capacity`` bounds retained *finished* spans (oldest evicted
     first); ``now`` is the clock every unstamped start/finish reads.
     Thread-safe: the scheduler and N executor threads finish spans
-    concurrently.
+    concurrently. ``profile=True`` puts each ``span`` on a profiler's
+    timeline too (``torch.profiler.record_function``).
     """
 
     enabled = True
 
-    def __init__(self, capacity: int = 4096, now=time.perf_counter):
+    def __init__(self, capacity: int = 4096, now=time.perf_counter,
+                 profile: bool = False):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
@@ -118,6 +133,11 @@ class Tracer:
         self._span_ids = itertools.count()
         self._trace_ids = itertools.count()
         self._lock = threading.Lock()
+        self._open = threading.local()   # .stack: this thread's open spans
+        self._range = None
+        if profile:
+            from torch.profiler import record_function
+            self._range = record_function
 
     def now(self) -> float:
         return self._now()
@@ -156,10 +176,24 @@ class Tracer:
     @contextmanager
     def span(self, name: str, *, trace_id=None, parent: Span | None = None,
              **attrs):
+        """A span over the ``with`` block, committed when it ends. Without
+        ``parent`` or ``trace_id`` it is the child of this thread's
+        innermost open ``span``, if any."""
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        if parent is None and trace_id is None and stack:
+            parent = stack[-1]
         s = self.start(name, trace_id=trace_id, parent=parent, **attrs)
+        stack.append(s)
         try:
-            yield s
+            if self._range is None:
+                yield s
+            else:
+                with self._range(name):
+                    yield s
         finally:
+            stack.pop()
             self.finish(s)
 
     # -- reading -------------------------------------------------------------
@@ -215,9 +249,8 @@ class NullTracer:
              **kwargs) -> _NullSpan:
         return NULL_SPAN
 
-    @contextmanager
     def span(self, name: str, **kwargs):
-        yield NULL_SPAN
+        return _NULL_SPAN_CONTEXT
 
     def export(self, trace_id=None) -> list:
         return []

@@ -36,17 +36,3 @@ def request_attributes(stats: dict, reduce=np.max) -> dict:
         out[key] = float(reduce(arr) if arr.ndim else arr)
     return out
 
-
-def row_attributes(stats: dict, row: int) -> dict:
-    """Scalar traversal attributes for one row of a stats dict."""
-    out = {}
-    for key in TRACE_STAT_KEYS:
-        v = stats.get(key)
-        if v is None:
-            continue
-        arr = np.asarray(v, np.float64)
-        if arr.ndim >= 1 and row < arr.shape[0]:
-            out[key] = float(arr[row])
-        elif arr.ndim == 0:
-            out[key] = float(arr)
-    return out

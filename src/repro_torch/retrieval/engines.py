@@ -41,6 +41,7 @@ from ..core.traversal import (RetrievalResult, retrieve_batched,
                               retrieve_sequential)
 from ..core.twolevel import TwoLevelParams
 from ..index.compressed import CompressedImpactIndex
+from ..obs.spans import NULL_TRACER
 from .contract import K_BUCKETS, bucket_k
 from .hybrid import (HybridIndex, dense_topk, embed_queries,
                      rerank_candidates, rrf_fuse)
@@ -116,7 +117,8 @@ class BatchedEngine:
     descending-bound chunk loop (early exit): bit-identical to the
     ``impact``-schedule full scan while dispatching only the live chunk
     prefix; stats gain ``chunks_dispatched``. ``chunk_tiles`` overrides
-    ``params.chunk_tiles``.
+    ``params.chunk_tiles``. ``tracer`` records each search's steps
+    (``core.traversal``).
     """
 
     use_kernel = False
@@ -126,7 +128,7 @@ class BatchedEngine:
     # search(params=...), possibly with a per-call threshold_factor.
     def __init__(self, index, params: TwoLevelParams,
                  traversal: str = "full", chunk_tiles: int | None = None,
-                 device="cuda"):
+                 device="cuda", tracer=NULL_TRACER):
         self.index = _require_bii(index, self.name, device)
         if traversal not in self.traversals:
             raise ValueError(
@@ -134,17 +136,19 @@ class BatchedEngine:
                 f"{self.traversals}, got {traversal!r}")
         self.traversal = traversal
         self.chunk_tiles = chunk_tiles
+        self.tracer = tracer
 
     def search(self, terms, weights_b, weights_l, dense, *, k, params):
         return retrieve_batched(self.index, terms, weights_b, weights_l,
                                 params, use_kernel=self.use_kernel, k=k,
                                 traversal=self.traversal,
-                                chunk_tiles=self.chunk_tiles)
+                                chunk_tiles=self.chunk_tiles,
+                                tracer=self.tracer)
 
     def replicate(self, params):
         return type(self)(self.index, params, traversal=self.traversal,
                           chunk_tiles=self.chunk_tiles,
-                          device=self.index.device)
+                          device=self.index.device, tracer=self.tracer)
 
 
 @register_engine("kernel")

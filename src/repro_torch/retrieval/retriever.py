@@ -16,7 +16,12 @@ The facade owns the query-time mechanics:
     shape with zero-weight no-op terms;
   - **k-bucketing**: per-request ``k`` executes at the smallest bucket
     >= k and is truncated back (``k_buckets=None`` = exact mode), so the
-    results equal the reference's for the same request.
+    results equal the reference's for the same request;
+  - **tracing**: with a ``repro_torch.obs.Tracer`` (``tracer=``; the
+    default ``NULL_TRACER`` records nothing) each search is an
+    ``rt.search`` span (``rows``, padded ``width``, real ``terms``, ``k``
+    executed, ``chunks`` run) around ``rt.pad`` and the engine's own spans
+    (``core.traversal``; the ``"batched"`` and ``"kernel"`` engines).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.twolevel import TwoLevelParams, resolve_k
+from ..obs.spans import NULL_TRACER
 from .contract import (K_BUCKETS, SearchRequest, SearchResponse, bucket_k,
                        resolve_ks)
 from .engines import get_engine
@@ -77,7 +83,8 @@ class Retriever:
     """Facade over a registered engine."""
 
     def __init__(self, engine, params: TwoLevelParams,
-                 k_buckets=K_BUCKETS, generation: int = 0, metrics=None):
+                 k_buckets=K_BUCKETS, generation: int = 0, metrics=None,
+                 tracer=NULL_TRACER):
         self.engine = engine
         self.params = params
         # sorted: bucket_k picks the first bucket >= k in iteration order
@@ -90,11 +97,12 @@ class Retriever:
         self._hist_search = (
             None if metrics is None
             else metrics.histogram(f"search_ms/{self.engine_name}"))
+        self.tracer = tracer
 
     @classmethod
     def open(cls, index, params: TwoLevelParams | None = None,
              engine: str = "batched", *, device="cuda", k_buckets=K_BUCKETS,
-             generation: int = 0, metrics=None,
+             generation: int = 0, metrics=None, tracer=NULL_TRACER,
              **engine_opts) -> "Retriever":
         """Build a retriever: ``index`` (a ``BlockedImpactIndex``, a
         ``repro_torch.index.CompressedImpactIndex``, a
@@ -109,12 +117,16 @@ class Retriever:
         ``first_stage=`` and the first stage's options for ``"cascade"`` /
         ``"rrf"``, also ``rrf_k=`` for ``"rrf"``); ``metrics`` an optional
         ``repro_torch.obs.MetricsRegistry`` that collects per-engine search
-        latency histograms."""
+        latency histograms; ``tracer`` a ``repro_torch.obs.Tracer`` for the
+        searches' spans, which the engine gets too (an engine that records
+        none refuses it)."""
         params = params if params is not None else TwoLevelParams()
+        if tracer is not NULL_TRACER:
+            engine_opts["tracer"] = tracer
         eng = get_engine(engine)(index, params, device=device,
                                  **engine_opts)
         return cls(eng, params, k_buckets=k_buckets, generation=generation,
-                   metrics=metrics)
+                   metrics=metrics, tracer=tracer)
 
     @property
     def engine_name(self) -> str:
@@ -130,7 +142,8 @@ class Retriever:
                 f"cloning (no .replicate)")
         return Retriever(replicate(self.params), self.params,
                          k_buckets=self.k_buckets,
-                         generation=self.generation, metrics=self.metrics)
+                         generation=self.generation, metrics=self.metrics,
+                         tracer=self.tracer)
 
     def search(self, request: SearchRequest | None = None, *,
                terms=None, weights_b=None, weights_l=None, dense=None,
@@ -167,18 +180,29 @@ class Retriever:
             params = params.replace(
                 threshold_factor=float(request.threshold_factor))
 
-        if request.terms is not None:
-            q_terms, qw_b, qw_l = _pad_queries(
-                request.terms, request.weights_b, request.weights_l)
-        else:
-            q_terms = qw_b = qw_l = None
+        tr = self.tracer
+        with tr.span("rt.search") as span:
+            if request.terms is not None:
+                with tr.span("rt.pad"):
+                    q_terms, qw_b, qw_l = _pad_queries(
+                        request.terms, request.weights_b, request.weights_l)
+                if tr.enabled:
+                    span.set(rows=len(q_terms), width=int(q_terms.shape[1]),
+                             terms=sum(map(len, request.terms)))
+            else:
+                q_terms = qw_b = qw_l = None
 
-        # The engines return numpy results, so the window ends with the
-        # ids, scores and stats on the host: what a caller waits for.
-        t0 = time.perf_counter()
-        res = self.engine.search(q_terms, qw_b, qw_l, request.dense,
-                                 k=k_exec, params=params)
-        latency_ms = (time.perf_counter() - t0) * 1e3
+            # The engines return numpy results, so the window ends with the
+            # ids, scores and stats on the host: what a caller waits for.
+            t0 = time.perf_counter()
+            res = self.engine.search(q_terms, qw_b, qw_l, request.dense,
+                                     k=k_exec, params=params)
+            latency_ms = (time.perf_counter() - t0) * 1e3
+            if tr.enabled:
+                span.set(k=k_exec)
+                chunks = res.stats.get("chunks_dispatched")
+                if chunks is not None and len(chunks):
+                    span.set(chunks=int(chunks.max()))
         if self._hist_search is not None:
             self._hist_search.record(latency_ms)
         ids = np.asarray(res.ids)[:, :k_req]

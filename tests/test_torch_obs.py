@@ -24,6 +24,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -264,6 +265,46 @@ def test_ring_eviction_is_deterministic_fifo():
     with pytest.raises(ValueError, match="capacity"):
         Tracer(capacity=0)
 
+def test_nested_spans_link_to_the_open_span():
+    """``span`` without a parent or trace id is the child of this thread's
+    innermost open span; an explicit parent or trace id wins; spans on
+    another thread do not nest under this one's."""
+    clock = iter(float(i) for i in range(100))
+    tr = Tracer(now=lambda: next(clock))
+    with tr.span("search", rows=2) as root:
+        with tr.span("chunk") as chunk:
+            with tr.span("gather"):
+                pass
+        other = tr.emit("request", 0.0, 1.0, trace_id=7)
+        with tr.span("copy", parent=other):
+            pass
+        with tr.span("own", trace_id=9):
+            pass
+
+        def alone():
+            with tr.span("alone"):
+                pass
+        th = threading.Thread(target=alone)
+        th.start()
+        th.join(timeout=10)
+        assert not th.is_alive()
+    spans = {s["name"]: s for s in tr.export()}
+    assert spans["search"]["parent_id"] is None
+    assert spans["search"]["attrs"] == {"rows": 2}
+    assert spans["chunk"]["parent_id"] == root.span_id
+    assert spans["gather"]["parent_id"] == chunk.span_id
+    assert {s["trace_id"] for n, s in spans.items()
+            if n in ("search", "chunk", "gather")} == {root.trace_id}
+    assert (spans["copy"]["parent_id"], spans["copy"]["trace_id"]) == (
+        other.span_id, 7)
+    assert (spans["own"]["parent_id"], spans["own"]["trace_id"]) == (None, 9)
+    assert spans["alone"]["parent_id"] is None
+    assert spans["alone"]["trace_id"] != root.trace_id
+    # the ring order is the finish order: innermost first
+    assert [s["name"] for s in tr.export()][:3] == ["gather", "chunk",
+                                                   "request"]
+
+
 def test_null_tracer_is_free_and_shared():
     assert NULL_TRACER.enabled is False
     assert NULL_TRACER.emit("x", 0.0, 1.0) is NULL_SPAN
@@ -273,6 +314,8 @@ def test_null_tracer_is_free_and_shared():
         assert s is NULL_SPAN
     assert NULL_TRACER.export() == [] and len(NULL_TRACER) == 0
     assert isinstance(NULL_TRACER, NullTracer)
+    # one shared context manager, whatever the name and attributes
+    assert NULL_TRACER.span("x") is NULL_TRACER.span("y", chunk=3)
 
 def test_disabled_tracer_overhead_guard():
     """The disabled path must stay no-op cheap: one attribute check per
@@ -290,8 +333,14 @@ def test_disabled_tracer_overhead_guard():
     for _ in range(n):
         tr.emit("request", 0.0, 1.0)
     elapsed_emit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tr.span("rt.chunk"):    # the search path's per-step cost
+            pass
+    elapsed_span = time.perf_counter() - t0
     assert elapsed_check / n < 5e-6     # the scheduler's per-delivery cost
     assert elapsed_emit / n < 20e-6
+    assert elapsed_span / n < 20e-6
 
 
 # -- export -------------------------------------------------------------------
@@ -603,7 +652,7 @@ def test_obs_surface_loads_without_torch(tmp_path):
     """``repro_torch.obs`` (metrics, spans, export, cost) imports and runs
     with ``torch``, ``jax`` and ``repro`` unimportable; ``trace_exec``,
     which reads the traversal's stat keys, is the one module that needs
-    torch."""
+    torch, and ``Tracer(profile=True)`` the one tracer."""
     script = textwrap.dedent("""
         import sys
 
@@ -619,6 +668,14 @@ def test_obs_surface_loads_without_torch(tmp_path):
         reg.histogram("search_ms/kernel").record_many([1.0, 2.0])
         assert "repro_search_ms_kernel_count 2" in prometheus_text(reg)
         Tracer().emit("request", 0.0, 1.0)
+        with Tracer().span("search") as span:
+            span.set(rows=1)
+        try:
+            Tracer(profile=True)     # a profiler range needs torch
+        except ImportError:
+            pass
+        else:
+            raise SystemExit("Tracer(profile=True) loaded without torch")
         try:
             import repro_torch.obs.trace_exec
         except ImportError:
@@ -667,13 +724,103 @@ def test_retriever_records_one_search_ms_sample_per_search(
     assert plain.metrics is None and plain._hist_search is None
 
 
+# the parent of each of the search path's spans (``rt.chunk``'s steps sit
+# under ``rt.search`` in the full scan, which has no chunk loop)
+SEARCH_PARENTS = {"rt.search": None, "rt.pad": "rt.search",
+                  "rt.upload": "rt.search", "rt.plan": "rt.search",
+                  "rt.chunk.test": "rt.search", "rt.chunk": "rt.search",
+                  "rt.copy": "rt.search",
+                  **{f"rt.chunk.{step}": "rt.chunk" for step in (
+                      "gather", "score", "counts", "select", "merge")}}
+
+
+def _profiled(fn):
+    """``fn()`` under the profiler (host only): its result and the names
+    and [start, end] of the profile's ``rt.`` ranges."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    ranges = [(e.name(), e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("rt.")]
+    return out, ranges
+
+
+@pytest.mark.parametrize("engine,opts,kind", [
+    ("kernel", {"traversal": "chunked_fused", "chunk_tiles": 1}, "fp32"),
+    ("kernel", {"traversal": "chunked_fused", "chunk_tiles": 1}, "q8"),
+    ("batched", {"traversal": "chunked", "chunk_tiles": 1}, "fp32"),
+    ("batched", {}, "fp32")])
+def test_search_spans_nest_on_the_profiler_timeline(setup, engine, opts,
+                                                    kind):
+    """A search with ``Tracer(profile=True)`` under the profiler: each span
+    is a profiler range of its name, nested as the ring's parents say; one
+    ``rt.chunk`` per dispatched chunk (the loop's last, failing test has
+    none); ids, scores and stats bit-equal to the untraced search, which
+    opens no range at all."""
+    corpus, index = setup
+    if kind == "q8":
+        index = compress_index(corpus.merged("scaled"), tile_size=256,
+                               device="cpu")
+    rows = (2, 3, 4, 5, 8)            # the loop stops before the last chunk
+    q = dict(terms=[corpus.queries[i][:3 + i % 3] for i in rows],
+             weights_b=[corpus.q_weights_b[i][:3 + i % 3] for i in rows],
+             weights_l=[corpus.q_weights_l[i][:3 + i % 3] for i in rows],
+             k=10, threshold_factor=2.0)
+    plain = Retriever.open(index, twolevel.fast(), engine=engine,
+                           device="cpu", **opts)
+    tracer = Tracer(profile=True)
+    traced = Retriever.open(index, twolevel.fast(), engine=engine,
+                            device="cpu", tracer=tracer, **opts)
+    ref, none = _profiled(lambda: plain.search(**q))
+    got, ranges = _profiled(lambda: traced.search(**q))
+    assert none == []
+    np.testing.assert_array_equal(got.ids, ref.ids)
+    np.testing.assert_array_equal(got.scores, ref.scores)
+    assert got.stats.keys() == ref.stats.keys()
+    for key in ref.stats:
+        np.testing.assert_array_equal(got.stats[key], ref.stats[key])
+
+    spans = tracer.export()
+    by_id = {sp["span_id"]: sp for sp in spans}
+    parents = {sp["name"]: (by_id[sp["parent_id"]]["name"]
+                            if sp["parent_id"] is not None else None)
+               for sp in spans}
+    chunked = "traversal" in opts
+    want = SEARCH_PARENTS if chunked else {
+        n: ("rt.search" if p == "rt.chunk" else p)
+        for n, p in SEARCH_PARENTS.items()
+        if n not in ("rt.chunk", "rt.chunk.test")}
+    assert parents == want
+    assert len({sp["trace_id"] for sp in spans}) == 1
+    names = [sp["name"] for sp in spans]
+    assert sorted(n for n, _, _ in ranges) == sorted(names)
+    # the profiler's ranges nest as the ring's parents say
+    for name, s, e in ranges:
+        parent = want[name]
+        if parent is not None:
+            assert any(n == parent and ps <= s and e <= pe
+                       for n, ps, pe in ranges), name
+    root, = (sp for sp in spans if sp["name"] == "rt.search")
+    dispatched = int(ref.stats["chunks_dispatched"].max()) if chunked else 0
+    assert root["attrs"] == {"rows": len(rows), "width": 5,
+                             "terms": sum(3 + i % 3 for i in rows), "k": 10,
+                             **({"chunks": dispatched} if chunked else {})}
+    if chunked:
+        assert names.count("rt.chunk") == dispatched
+        assert 0 < dispatched < ref.stats["n_chunks"][0]
+        assert names.count("rt.chunk.test") == dispatched + 1
+        assert [sp["attrs"]["chunk"] for sp in spans
+                if sp["name"] == "rt.chunk"] == list(range(dispatched))
+
+
 @pytest.mark.parametrize("engine,opts", [
     ("batched", {}), ("batched", {"traversal": "chunked", "chunk_tiles": 2}),
     ("kernel", {"traversal": "chunked_fused", "chunk_tiles": 2})])
 def test_trace_attributes_match_reference(setup, reference, engine, opts):
-    """``request_attributes`` and ``row_attributes`` on the port's stats
-    equal the reference's on its stats, for the same queries on the same
-    corpus: a full scan (no chunk keys) and both chunked traversals."""
+    """``request_attributes`` on the port's stats equals the reference's
+    on its stats, for the same queries on the same corpus: a full scan (no
+    chunk keys) and both chunked traversals."""
     assert TRACE_STAT_KEYS == JAX_TRACE_STAT_KEYS
     corpus, index = setup
     _, jindex = reference
@@ -688,9 +835,6 @@ def test_trace_attributes_match_reference(setup, reference, engine, opts):
     assert ("chunks_dispatched" in got) == ("traversal" in opts)
     assert (trace_exec.request_attributes(port.stats, reduce=np.mean)
             == jax_trace_exec.request_attributes(ref.stats, reduce=np.mean))
-    for row in (0, 5, len(corpus.queries) - 1, len(corpus.queries)):
-        assert (trace_exec.row_attributes(port.stats, row)
-                == jax_trace_exec.row_attributes(ref.stats, row))
 
 
 @pytest.mark.parametrize("kind", ["fp32", "q8"])
