@@ -37,10 +37,10 @@ served: the fp32 ``BlockedImpactIndex`` and the compressed
 differ only in their gather (``core.index.dispatch_gather``). On the
 compressed index with ``use_kernel=True`` the executors pass undecoded
 rows to the decode-in-kernel ``guided_score_tile_q`` /
-``guided_score_chunk_q``, whose 6th row (postings per slot) gives the
-presence and postings stats. Top-k selection uses a stable descending
-sort, which keeps the reference's tie rule: equal values keep their
-order, lower index first.
+``guided_score_chunk_q``. Every scorer's 6th row (postings per slot)
+gives the presence and postings stats. Top-k selection uses a stable
+descending sort, which keeps the reference's tie rule: equal values keep
+their order, lower index first.
 
 A tracer (``repro_torch.obs.Tracer``; ``NULL_TRACER``, the default, records
 nothing) passed to ``retrieve_batched`` rides on the ``Context`` and
@@ -139,36 +139,18 @@ def _tile_topk(scores, mask, kq: int):
     return vals, idx.to(torch.int32)
 
 
-def _slot_presence(offs, tile_size: int):
-    """Per (row, tile): the number of slots holding at least one posting,
-    counted over all query terms ([..., Nq, P] -> [...] f32)."""
-    valid = offs >= 0
-    slot = torch.where(valid, offs, tile_size).long().flatten(-2)
-    cnt = torch.zeros(slot.shape[:-1] + (tile_size + 1,),
-                      dtype=torch.float32, device=offs.device)
-    cnt.scatter_add_(-1, slot, valid.flatten(-2).float())
-    return (cnt[..., :tile_size] > 0).sum(-1).float()
-
-
-def _offs_counts(offs, tile_size: int):
-    """(present slots, valid postings) per (row, tile) from gathered
-    offsets."""
-    return (_slot_presence(offs, tile_size),
-            (offs >= 0).sum((-2, -1)).float())
-
-
 def _row5_counts(out):
-    """(present slots, valid postings) per (row, tile) from a q8 scorer's
-    6th row, the postings per slot."""
+    """(present slots, valid postings) per (row, tile) from a scorer's 6th
+    row, the postings per slot (exact: integers below 2^24)."""
     slot_cnt = out[..., 5, :]
     return (slot_cnt > 0).sum(-1).float(), slot_cnt.sum(-1)
 
 
 def _candidates(out, counts, kq: int):
-    """From a scorer's rows ``out`` [..., 5 (or 6), S]: the top-``kq``
-    candidates of Global and Local (eval mask) and Rank (rank mask), and
-    the stat counters [..., 4]. ``counts`` are the (present, postings)
-    pair of ``_offs_counts`` or ``_row5_counts``."""
+    """From a scorer's rows ``out`` [..., 6, S]: the top-``kq`` candidates
+    of Global and Local (eval mask) and Rank (rank mask), and the stat
+    counters [..., 4]. ``counts`` are the (present, postings) pair of
+    ``_row5_counts``."""
     g, l, r, eval_m, rank_m = out[..., :5, :].unbind(-2)
     eval_mask = eval_m > 0
     rank_mask = rank_m > 0
@@ -315,8 +297,7 @@ def _tile_step(ctx: Context, carry: Carry, tile,
             out = score(*x.rows, x.essential.float(), x.prefix_beta,
                         x.th_lo, *coef, tile_size=tile_size)
     with tr.span("rt.chunk.counts"):
-        counts = (_row5_counts(out) if ctx.raw_q8
-                  else _offs_counts(x.rows[0], tile_size))
+        counts = _row5_counts(out)
     with tr.span("rt.chunk.select"):
         *cands, stats = _candidates(out, counts, ctx.kq)
     with tr.span("rt.chunk.merge"):
@@ -361,8 +342,7 @@ def _chunk_step_fused(ctx: Context, carry: Carry, tiles_chunk,
         else:
             out = guided_score_chunk(*x.rows, *args, tile_size=tile_size)
     with tr.span("rt.chunk.counts"):
-        counts = (_row5_counts(out) if ctx.raw_q8
-                  else _offs_counts(x.rows[0], tile_size))
+        counts = _row5_counts(out)
     with tr.span("rt.chunk.select"):
         *cands, stats = _candidates(out, counts, ctx.kq)
     with tr.span("rt.chunk.merge"):

@@ -1,8 +1,9 @@
 // Guided scoring for Hopper (sm_90a) on both indexes, one tile per query
 // or a chunk of C tiles per query with a per-tile skip flag: the fp32 form
-// (5 output rows) and the q8 form, which decodes the bit-packed gaps and
-// int8 impacts in the kernel and adds a 6th row, the valid postings per
-// doc slot.
+// and the q8 form, which decodes the bit-packed gaps and int8 impacts in
+// the kernel. Both write six output rows per doc slot, the last the valid
+// postings there, which the executor sums into its present-slot and
+// posting counters.
 //
 // Replaces the TPU kernels repro/kernels/guided_score.py::guided_score_tile
 // (_kernel), ::guided_score_chunk (_chunk_kernel), ::guided_score_tile_q
@@ -12,8 +13,8 @@
 //
 // Bound: latency, not bytes. At the main path's shapes (16 queries x 16
 // runs of about 7 postings over S = 2048 slots, per tile) a tile's work
-// needs about 40 KB, most of it the output rows; a chunk of 8 tiles per
-// query (128 tiles) needs 5.4-6.4 MB, 1.6-1.9 us at the card's memory rate,
+// needs about 50 KB, most of it the output rows; a chunk of 8 tiles per
+// query (128 tiles) needs 6.5-7.7 MB, 1.9-2.3 us at the card's memory rate,
 // less than a launch and one dependent round trip cost together. The time
 // goes to dependent memory round trips and block barriers on each block's
 // critical path, and to waves of blocks. So a block's path is about two
@@ -63,7 +64,7 @@
 //     by one only from the word that reaches it: about 32 + its own share.
 //   * No dense zeroing: a slot's presence mask (ceil(Nq / 32) words) says
 //     which dense entries hold a posting. Survive = mask & essential != 0;
-//     q8's 6th row = popcount(mask), exact because a (term, slot) pair
+//     the 6th row = popcount(mask), exact because a (term, slot) pair
 //     holds at most one posting. A posting with a zero weight (a padded
 //     query term, a code that dequantizes to 0) still sets its bit.
 //   * A second barrier, then one thread per slot runs the descending freeze
@@ -72,7 +73,7 @@
 //     coalesced.
 // Indexing: essential, prefix_beta, offs / wb / wl, words / qb / ql,
 // meta_i and meta_f are per tile (row0 = tile * Nq); qw_b / qw_l and th_lo
-// are per query; the output is [B, C, rows, S].
+// are per query; the output is [B, C, kRows, S].
 //
 // Rounding: every product and sum is an explicit round-to-nearest
 // intrinsic and the library is built with -fmad=false. Skipping the add
@@ -89,6 +90,8 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// Global, Local, Rank, eval mask, rank mask, postings per slot
+constexpr int kRows = 6;
 constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float combine(float coef, float one_minus,
@@ -177,7 +180,6 @@ __device__ void prologue(const Lane& L, const float* ess_t,
 }
 
 // A skipped tile of a chunk: its zero rows for the lane block.
-template <int kRows>
 __device__ void write_zeros(const Lane& L, float* out_t, int tile_size) {
   for (int s = threadIdx.x; s < L.width; s += kThreads) {
 #pragma unroll
@@ -186,7 +188,6 @@ __device__ void write_zeros(const Lane& L, float* out_t, int tile_size) {
 }
 
 // One thread per slot: the descending freeze loop and the output rows.
-template <int kRows>
 __device__ void freeze_and_write(const Lane& L, int nq, float th,
                                  float alpha, float beta, float gamma,
                                  float* out_t, int tile_size) {
@@ -223,7 +224,7 @@ __device__ void freeze_and_write(const Lane& L, int nq, float th,
     out_t[2 * tile_size + s] = combine(gamma, one_m_gamma, sb, sl);
     out_t[3 * tile_size + s] = (survive && alive) ? 1.f : 0.f;
     out_t[4 * tile_size + s] = survive ? 1.f : 0.f;
-    if (kRows == 6) out_t[5 * tile_size + s] = static_cast<float>(count);
+    out_t[5 * tile_size + s] = static_cast<float>(count);
   }
 }
 
@@ -316,9 +317,9 @@ guided_score_tile_kernel(const int* __restrict__ offs,
   const int b = blockIdx.z;
   const long long tile = (long long)b * n_chunk + blockIdx.y;
   const Lane L(smem, nq, block_s, tile_size);
-  float* out_t = out + tile * 5 * tile_size + L.base;
+  float* out_t = out + tile * kRows * tile_size + L.base;
   if (skip != nullptr && skip[tile] != 0) {
-    write_zeros<5>(L, out_t, tile_size);
+    write_zeros(L, out_t, tile_size);
     return;
   }
   // th_lo issues with the first loads and reaches shared memory at the
@@ -344,7 +345,7 @@ guided_score_tile_kernel(const int* __restrict__ offs,
     run_f(L, i, first, offs + r, wb + r, wl + r, p, lane);
   }
   __syncthreads();
-  freeze_and_write<5>(L, nq, th, alpha, beta, gamma, out_t, tile_size);
+  freeze_and_write(L, nq, th, alpha, beta, gamma, out_t, tile_size);
 }
 
 // ------------------------------------------------------------------ q8
@@ -500,9 +501,9 @@ guided_score_tile_q_kernel(const int* __restrict__ words,
   const int b = blockIdx.z;
   const long long tile = (long long)b * n_chunk + blockIdx.y;
   const Lane L(smem, nq, block_s, tile_size);
-  float* out_t = out + tile * 6 * tile_size + L.base;
+  float* out_t = out + tile * kRows * tile_size + L.base;
   if (skip != nullptr && skip[tile] != 0) {
-    write_zeros<6>(L, out_t, tile_size);
+    write_zeros(L, out_t, tile_size);
     return;
   }
   // th_lo issues with the first loads and reaches shared memory at the
@@ -552,7 +553,7 @@ guided_score_tile_q_kernel(const int* __restrict__ words,
           lane);
   }
   __syncthreads();
-  freeze_and_write<6>(L, nq, th, alpha, beta, gamma, out_t, tile_size);
+  freeze_and_write(L, nq, th, alpha, beta, gamma, out_t, tile_size);
 }
 
 // The opt-in shared-memory limit is read once per process (one device); a
@@ -632,7 +633,7 @@ int launch_q(const int* words, const uint8_t* qb, const uint8_t* ql,
 
 extern "C" {
 
-// [B, Nq, P] -> [B, 5, S]; `skip` and `C` are ignored (C = 1, no skip);
+// [B, Nq, P] -> [B, 6, S]; `skip` and `C` are ignored (C = 1, no skip);
 // block_s = guided_score.tile_lane_width(Nq, S).
 int guided_score_tile_launch(const int* offs, const float* wb,
                              const float* wl, const float* essential,
@@ -648,7 +649,7 @@ int guided_score_tile_launch(const int* offs, const float* wb,
                   stream);
 }
 
-// [B, C, Nq, P] -> [B, C, 5, S]; skip [B, C] nonzero = zero rows;
+// [B, C, Nq, P] -> [B, C, 6, S]; skip [B, C] nonzero = zero rows;
 // block_s = guided_score.chunk_lane_width(Nq, S, B * C).
 int guided_score_chunk_launch(const int* offs, const float* wb,
                               const float* wl, const float* essential,

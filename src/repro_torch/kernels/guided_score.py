@@ -2,17 +2,17 @@
 
 Two kernels, each with a plain PyTorch version of the same contract:
 
-  - ``guided_score_tile``  [B, Nq, P] -> [B, 5, S]: one tile per query.
+  - ``guided_score_tile``  [B, Nq, P] -> [B, 6, S]: one tile per query.
     Replaces the TPU kernel ``repro/kernels/guided_score.py::
     guided_score_tile`` (body ``_kernel``), which the JAX package runs
     once per (query, tile) under ``vmap``.
-  - ``guided_score_chunk`` [B, C, Nq, P] -> [B, C, 5, S]: a chunk of C
+  - ``guided_score_chunk`` [B, C, Nq, P] -> [B, C, 6, S]: a chunk of C
     tiles per query with a per-tile skip flag. Replaces ``repro/kernels/
     guided_score.py::guided_score_chunk`` (body ``_chunk_kernel``).
 
 and their decode-in-kernel twins for the compressed (q8) index, which
-take undecoded rows (``index.compressed.gather_tile_q_raw``), decode them
-as ``decode_rows`` does and add a 6th output row, postings per slot:
+take undecoded rows (``index.compressed.gather_tile_q_raw``) and decode
+them as ``decode_rows`` does:
 
   - ``guided_score_tile_q``  [B, Nq, ...] -> [B, 6, S]. Replaces
     ``guided_score_tile_q`` (body ``_kernel_q`` + ``_decode_rows``).
@@ -26,8 +26,13 @@ Per (query, tile) both compute, over the tile's S doc slots:
      ``essential[i]`` or ``beta*sb + (1-beta)*sl + prefix_beta[i] > th_lo``;
      surviving live slots accumulate both weights;
   3. rows Global/Local/Rank (alpha/beta/gamma combinations of the sums),
-     the eval mask (survive & alive) and the rank mask (survive).
-A skipped tile of a chunk publishes five (q8: six) zero rows.
+     the eval mask (survive & alive) and the rank mask (survive);
+  4. a 6th row, the valid postings per slot over all Nq terms (pad terms
+     and non-essential ones included), from which the executor takes its
+     present-slot and posting counters. The fp32 TPU kernels return rows
+     0-4 alone (the JAX package counts from the gathered offsets), so the
+     tests hold the port to them on rows 0-4.
+A skipped tile of a chunk publishes six zero rows.
 
 Dispatch is by the tensors' device: a CPU tensor runs the plain version,
 a CUDA tensor launches the kernel (or raises). There is no fallback.
@@ -38,8 +43,8 @@ padding. The kernel relies on both (each (term, slot) gets at most one
 posting; a run ends at its first -1).
 
 Bound on an H100 SXM (3.35 TB/s). The padded inputs are ``12*Nq*P``
-bytes per live (query, tile) and the output ``20*S`` bytes; at Nq = 16,
-P = S = 2048 that is about 0.43 MB, 0.13 us. A run is read only up to its
+bytes per live (query, tile) and the output ``24*S`` bytes; at Nq = 16,
+P = S = 2048 that is about 0.44 MB, 0.13 us. A run is read only up to its
 first padding entry, so the bytes the work needs are 12 per valid posting
 plus the output; ``chip_smoke.py`` computes that bound from each run's
 data. The kernels store each posting straight into shared memory (one
@@ -66,8 +71,8 @@ import ctypes
 import numpy as np
 import torch
 
-N_ROWS = 5          # Global, Local, Rank, eval mask, rank mask
-N_ROWS_Q = 6        # the same, then postings per slot
+# Global, Local, Rank, eval mask, rank mask, postings per slot
+N_ROWS = 6
 # Doc slots per thread block (lane width) of the tile kernels: 2048 / 128 =
 # 16 lane blocks per query, 256 blocks at a batch of 16 on the 132 SMs.
 TILE_LANE_WIDTH = 128
@@ -139,7 +144,7 @@ def guided_score_tile_plain(offs, wb, wl, essential, prefix_beta, th_lo,
                             alpha, beta, gamma, *, tile_size: int):
     """Plain version of ``guided_score_tile``: leading dims ``[...]`` (one
     tile per row), ``offs``/``wb``/``wl`` [..., Nq, P], ``essential``/
-    ``prefix_beta`` [..., Nq], ``th_lo`` [...] -> [..., 5, S] f32."""
+    ``prefix_beta`` [..., Nq], ``th_lo`` [...] -> [..., 6, S] f32."""
     alpha, beta, gamma = (_scalar(c) for c in (alpha, beta, gamma))
     valid = (offs >= 0).float()
     dense_b = _scatter_rows(offs, wb * valid, tile_size)
@@ -166,6 +171,7 @@ def guided_score_tile_plain(offs, wb, wl, essential, prefix_beta, th_lo,
         gamma * sb + (1.0 - gamma) * sl,
         (survive & alive).float(),
         survive.float(),
+        cnt.sum(-2),
     ], dim=-2)
 
 
@@ -173,7 +179,7 @@ def guided_score_chunk_plain(offs, wb, wl, essential, prefix_beta, skip,
                              th_lo, alpha, beta, gamma, *, tile_size: int):
     """Plain version of ``guided_score_chunk``: ``offs``/``wb``/``wl``
     [B, C, Nq, P], ``essential``/``prefix_beta`` [B, C, Nq], ``skip``
-    [B, C] (nonzero = skip), ``th_lo`` [B] -> [B, C, 5, S] f32; skipped
+    [B, C] (nonzero = skip), ``th_lo`` [B] -> [B, C, 6, S] f32; skipped
     tiles publish zeros."""
     th = th_lo[:, None].expand(skip.shape)
     out = guided_score_tile_plain(offs, wb, wl, essential, prefix_beta, th,
@@ -212,12 +218,6 @@ def decode_rows(words, qb_row, ql_row, meta_i, meta_f, qw_b=None, qw_l=None):
     return offs, deq(qb_row, 0, qw_b), deq(ql_row, 2, qw_l)
 
 
-def _with_slot_counts(out, offs, tile_size: int):
-    """Rows [..., 5, S] plus the 6th: valid postings per slot."""
-    cnt = _scatter_rows(offs, (offs >= 0).float(), tile_size).sum(-2)
-    return torch.cat([out, cnt[..., None, :]], -2)
-
-
 def guided_score_tile_q_plain(words, qb_row, ql_row, meta_i, meta_f, qw_b,
                               qw_l, essential, prefix_beta, th_lo, alpha,
                               beta, gamma, *, tile_size: int):
@@ -227,10 +227,9 @@ def guided_score_tile_q_plain(words, qb_row, ql_row, meta_i, meta_f, qw_b,
     [..., 6, S] f32."""
     offs, wb, wl = decode_rows(words, qb_row, ql_row, meta_i, meta_f, qw_b,
                                qw_l)
-    out = guided_score_tile_plain(offs, wb, wl, essential, prefix_beta,
-                                  th_lo, alpha, beta, gamma,
-                                  tile_size=tile_size)
-    return _with_slot_counts(out, offs, tile_size)
+    return guided_score_tile_plain(offs, wb, wl, essential, prefix_beta,
+                                   th_lo, alpha, beta, gamma,
+                                   tile_size=tile_size)
 
 
 def guided_score_chunk_q_plain(words, qb_row, ql_row, meta_i, meta_f, qw_b,
@@ -313,11 +312,12 @@ def _device_of(t: torch.Tensor) -> str:
 
 def guided_score_tile(offs, wb, wl, essential, prefix_beta, th_lo,
                       alpha, beta, gamma, *, tile_size: int):
-    """Score one tile per query: [B, Nq, P] inputs -> [B, 5, S].
+    """Score one tile per query: [B, Nq, P] inputs -> [B, 6, S].
 
     ``essential``/``prefix_beta`` [B, Nq] f32, ``th_lo`` [B] f32; ``alpha``,
-    ``beta``, ``gamma`` shared scalars. CPU tensors run the plain version;
-    CUDA tensors launch the kernel (counted in ``.launches``)."""
+    ``beta``, ``gamma`` shared scalars. Rows: Global, Local, Rank, eval
+    mask, rank mask, valid postings per slot. CPU tensors run the plain
+    version; CUDA tensors launch the kernel (counted in ``.launches``)."""
     if _device_of(offs) == "cpu":
         return guided_score_tile_plain(offs, wb, wl, essential, prefix_beta,
                                        th_lo, alpha, beta, gamma,
@@ -331,7 +331,7 @@ def guided_score_tile(offs, wb, wl, essential, prefix_beta, th_lo,
 
 def guided_score_chunk(offs, wb, wl, essential, prefix_beta, skip, th_lo,
                        alpha, beta, gamma, *, tile_size: int):
-    """Score a chunk of C tiles per query: [B, C, Nq, P] -> [B, C, 5, S].
+    """Score a chunk of C tiles per query: [B, C, Nq, P] -> [B, C, 6, S].
 
     ``essential``/``prefix_beta`` [B, C, Nq] f32 (from the chunk-start
     thresholds), ``skip`` [B, C] int32 (nonzero = publish zeros), ``th_lo``
@@ -372,7 +372,7 @@ def _launch_q(fn_name: str, words, qb_row, ql_row, meta_i, meta_f, qw_b,
         _check("skip", skip, torch.int32, (b, c), dev)
     if tile_size < 1:
         raise ValueError(f"tile_size={tile_size} must be >= 1")
-    out = torch.empty(lead + (N_ROWS_Q, tile_size), dtype=torch.float32,
+    out = torch.empty(lead + (N_ROWS, tile_size), dtype=torch.float32,
                       device=dev)
     block_s = (chunk_lane_width(nq, tile_size, b * c) if skip is not None
                else tile_lane_width(nq, tile_size))
@@ -391,9 +391,9 @@ def guided_score_tile_q(words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l,
     ``words`` [B, Nq, Wp] int32, ``qb_row``/``ql_row`` [B, Nq, P] uint8,
     ``meta_i`` [B, 3, Nq] int32, ``meta_f`` [B, 4, Nq] f32 (from
     ``gather_tile_q_raw``), ``qw_b``/``qw_l``/``essential``/``prefix_beta``
-    [B, Nq] f32, ``th_lo`` [B] f32. Rows 0-4 as ``guided_score_tile``, row
-    5 the valid postings per slot. CPU tensors run the plain version; CUDA
-    tensors launch the kernel (counted in ``.launches``)."""
+    [B, Nq] f32, ``th_lo`` [B] f32. Rows as ``guided_score_tile``'s. CPU
+    tensors run the plain version; CUDA tensors launch the kernel (counted
+    in ``.launches``)."""
     if _device_of(words) == "cpu":
         return guided_score_tile_q_plain(
             words, qb_row, ql_row, meta_i, meta_f, qw_b, qw_l, essential,

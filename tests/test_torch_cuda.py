@@ -113,6 +113,48 @@ def test_kernels_equal_plain_on_card(cuda, b, c, nq, p, s, full_every):
     torch.cuda.synchronize()
 
 
+# The kernel cases, then one whose every run holds P = 1024 postings over
+# 2048 slots at the tile lane width: every lane block past the first
+# reaches its first posting through the seek (``seek_f``).
+ROW5_CASES = KERNEL_CASES + [(2, 2, 8, 1024, 2048, 1)]
+
+
+@pytest.mark.parametrize(
+    "b,c,nq,p,s,full_every", ROW5_CASES,
+    ids=["-".join(map(str, case[:5])) + (f"-full{case[5]}" if case[5] else "")
+         for case in ROW5_CASES])
+def test_row5_counts_postings_on_card(cuda, b, c, nq, p, s, full_every):
+    """Row 5 of K1 and K2, the valid postings per slot over all terms,
+    equals the plain versions' and a count made here from the offsets;
+    a skipped tile's is zero."""
+    rng = np.random.default_rng(b * 100 + nq + 7)
+    offs, wb, wl, ess, pb = (t.to(cuda) for t in _inputs(
+        rng, (b, c), nq, p, s, full_every))
+    skip = torch.from_numpy((rng.random((b, c)) < 0.4).astype(np.int32)).to(
+        cuda)
+    th = torch.from_numpy(rng.random(b).astype(np.float32) * 3).to(cuda)
+    o = offs.cpu().long()
+    want = torch.zeros(b, c, s + 1).scatter_add_(
+        -1, torch.where(o >= 0, o, s).flatten(-2),
+        (o >= 0).flatten(-2).float())[..., :s]
+    args = (offs, wb, wl, ess, pb, skip, th, 0.7, 0.2, 0.05)
+    chunk = gs.guided_score_chunk(*args, tile_size=s)
+    assert chunk.shape == (b, c, 6, s)
+    row5 = chunk[:, :, 5].cpu()
+    assert torch.equal(row5, gs.guided_score_chunk_plain(
+        *args, tile_size=s)[:, :, 5].cpu())
+    live = skip.cpu() == 0
+    assert torch.equal(row5[live], want[live])
+    assert not bool(row5[~live].any())
+    targs = (offs[:, 0].contiguous(), wb[:, 0].contiguous(),
+             wl[:, 0].contiguous(), ess[:, 0].contiguous(),
+             pb[:, 0].contiguous(), th, 1.0, 0.3, 0.05)
+    tile = gs.guided_score_tile(*targs, tile_size=s)
+    assert tile.shape == (b, 6, s)
+    assert torch.equal(tile[:, 5].cpu(), want[:, 0])
+    torch.cuda.synchronize()
+
+
 def test_wrappers_validate_and_count(cuda):
     rng = np.random.default_rng(0)
     offs, wb, wl, ess, pb = (t.to(cuda) for t in _inputs(rng, (2,), 4, 32,

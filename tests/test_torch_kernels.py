@@ -7,7 +7,9 @@ the card (tests/test_torch_cuda.py, chip_smoke.py). Tolerance: rows 0-2
 (Global/Local/Rank) within rtol 1e-5 / atol 1e-5, the bound the reference
 holds its own kernel to against its oracle (XLA contracts the combines
 into fused multiply-adds, the port rounds each product, so low bits may
-differ); rows 3-4 (the masks) identical."""
+differ); rows 3-4 (the masks) identical. The reference's kernels return
+those five rows; the port's 6th, the postings per slot, is held to a
+count made here from the offsets."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,9 +34,12 @@ def _tile_inputs(rng, nq, p, tile_size, density=0.5):
 
 
 def _assert_rows_match(ref, port):
+    """Rows 0-4 of the port's six against the reference's five."""
     ref = np.asarray(ref)
     port = port.numpy()
-    assert ref.shape == port.shape
+    assert ref.shape[-2] == 5
+    assert port.shape == ref.shape[:-2] + (6,) + ref.shape[-1:]
+    port = port[..., :5, :]
     np.testing.assert_array_equal(ref[..., 3:, :], port[..., 3:, :])
     np.testing.assert_allclose(ref[..., :3, :], port[..., :3, :],
                                rtol=1e-5, atol=1e-5)
@@ -98,7 +103,7 @@ def test_chunk_plain_matches_pallas(n_chunk, nq, p, tile_size, block_s):
     port = gs.guided_score_chunk(_t(offs), _t(wb), _t(wl), _t(ess),
                                  _t(pbeta), _t(skip), _t(th), *coefs,
                                  tile_size=tile_size)
-    assert port.shape == (b, n_chunk, 5, tile_size)
+    assert port.shape == (b, n_chunk, 6, tile_size)
     for r in range(b):
         ref = jax_chunk(jnp.asarray(offs[r]), jnp.asarray(wb[r]),
                         jnp.asarray(wl[r]), jnp.asarray(ess[r]),
@@ -125,6 +130,55 @@ def test_chunk_all_skipped_is_zero():
     port = gs.guided_score_chunk(*args, tile_size=128)
     np.testing.assert_array_equal(np.asarray(ref), 0.0)
     np.testing.assert_array_equal(port.numpy(), 0.0)
+
+
+def _slot_counts(offs, tile_size):
+    """Postings per slot, counted posting by posting in numpy:
+    [..., Nq, P] -> [..., S]."""
+    lead = offs.shape[:-2]
+    flat = offs.reshape(-1, offs.shape[-2] * offs.shape[-1])
+    cnt = np.zeros((flat.shape[0], tile_size), np.float32)
+    for r, row in enumerate(flat):
+        np.add.at(cnt[r], row[row >= 0], 1.0)
+    return cnt.reshape(lead + (tile_size,))
+
+
+@pytest.mark.parametrize("nq,p,tile_size", [(6, 40, 128), (33, 96, 384)])
+def test_row5_counts_postings_per_slot(nq, p, tile_size):
+    """Row 5 of both plain scorers is the valid postings per slot over all
+    Nq terms: runs of every length ending in -1 (one empty, one of exactly
+    P), the pad term repeated in the last query slots at weight 0 (each
+    slot counts its posting), and zero on a skipped tile."""
+    rng = np.random.default_rng(nq)
+    b, c = 3, 4
+    offs = np.full((b, c, nq, p), -1, np.int32)
+    for idx in np.ndindex(b, c, nq):
+        n = int(rng.integers(0, p + 1))
+        offs[idx][:n] = np.sort(rng.choice(tile_size, n, replace=False))
+    offs[0, 0, 0] = -1                                   # an empty run
+    offs[0, 1, 0] = np.sort(rng.choice(tile_size, p, replace=False))
+    offs[..., -3:, :] = offs[..., :1, :]                 # the pad term
+    wb = (rng.random(offs.shape) * 3).astype(np.float32) * (offs >= 0)
+    wl = (rng.random(offs.shape) * 5).astype(np.float32) * (offs >= 0)
+    wb[..., -3:, :] = 0.0
+    wl[..., -3:, :] = 0.0
+    ess = (rng.random((b, c, nq)) < 0.5).astype(np.float32)
+    pb = np.cumsum(rng.random((b, c, nq)), -1).astype(np.float32)
+    skip = (rng.random((b, c)) < 0.4).astype(np.int32)
+    skip[0, :2], skip[1, 0] = 0, 1
+    th = (rng.random(b) * 3).astype(np.float32)
+    want = _slot_counts(offs, tile_size)
+    assert want.max() >= 4                   # the pad term's slots
+    chunk = gs.guided_score_chunk_plain(
+        _t(offs), _t(wb), _t(wl), _t(ess), _t(pb), _t(skip), _t(th), 1.0,
+        0.3, 0.05, tile_size=tile_size)[..., 5, :].numpy()
+    np.testing.assert_array_equal(chunk[skip == 0], want[skip == 0])
+    assert not chunk[skip != 0].any()
+    tile = gs.guided_score_tile_plain(
+        _t(offs[:, 1]), _t(wb[:, 1]), _t(wl[:, 1]), _t(ess[:, 1]),
+        _t(pb[:, 1]), _t(th), 1.0, 0.3, 0.05,
+        tile_size=tile_size)[..., 5, :].numpy()
+    np.testing.assert_array_equal(tile, want[:, 1])
 
 
 def test_cpu_tensors_run_the_plain_version_uncounted():
@@ -256,7 +310,7 @@ def test_launchers_route_to_the_tile_source(monkeypatch, q8, form, b, c):
                       (b, c or 1, nq) + ((3,) if q8 else ()) + (p, s),
                       width)]
     assert width == (512 if (form, b) == ("chunk", 16) else 128)
-    assert out.shape == (b,) + ((c,) if c else ()) + (6 if q8 else 5, s)
+    assert out.shape == (b,) + ((c,) if c else ()) + (6, s)
 
 
 def test_load_builds_once_across_threads(monkeypatch):

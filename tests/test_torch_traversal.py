@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import topk_scores_match
 from repro.core import build_index as jax_build_index
@@ -22,7 +23,8 @@ from repro.core.oracle import ranked_list
 from repro.core.traversal import retrieve_batched as jax_retrieve
 from repro.core.traversal import retrieve_sequential as jax_sequential
 from repro_torch import bridge
-from repro_torch.core import twolevel
+from repro_torch.core import traversal, twolevel
+from repro_torch.core.index import gather_tile
 from repro_torch.core.traversal import (STAT_KEYS, retrieve_batched,
                                         retrieve_sequential)
 
@@ -200,3 +202,78 @@ def test_rejects_unknown_traversal(setup):
     with pytest.raises(ValueError, match="traversal"):
         retrieve_batched(tidx, *_q(corpus), twolevel.fast(),
                          traversal="tiled")
+
+
+@pytest.fixture(scope="module")
+def q8_index(small_corpus):
+    from repro_torch.index import compress_index
+    return compress_index(small_corpus.merged("scaled"), tile_size=256,
+                          device="cpu")
+
+
+def _visited_counts(tidx, q_terms, calls):
+    """(present slots, postings) per row, summed over the tiles each step
+    visited (``calls``: the (tiles, skip) of every ``step_inputs``),
+    counted in numpy from ``core.index.gather_tile``'s offsets."""
+    docids, w_b, w_l, tile_ptr = tidx.gather_arrays()
+    present = np.zeros(len(q_terms))
+    postings = np.zeros(len(q_terms))
+    for tiles, skip in calls:
+        tiles = tiles.reshape(len(q_terms), -1)
+        skip = skip.reshape(len(q_terms), -1)
+        for r, c in zip(*np.nonzero(~skip)):
+            offs = gather_tile(docids, w_b, w_l, tile_ptr,
+                               torch.from_numpy(q_terms[r]),
+                               torch.tensor(int(tiles[r, c])),
+                               pad_len=tidx.pad_len,
+                               tile_size=tidx.tile_size)[0].numpy()
+            present[r] += len(np.unique(offs[offs >= 0]))
+            postings[r] += int((offs >= 0).sum())
+    return present, postings
+
+
+@pytest.mark.parametrize("kind,use_kernel", [
+    ("fp32", False), ("fp32", True), ("q8", False), ("q8", True)])
+def test_stats_count_pad_term_postings_on_every_traversal(
+        setup, q8_index, monkeypatch, kind, use_kernel):
+    """A batch padded with term 0 at weight 0, as the facade pads it:
+    ``docs_present`` and ``postings_touched`` come from the scorer's 6th
+    row, equal to a count made from the gathered offsets over the tiles
+    each traversal visited, and equal on the three traversals at chunks of
+    one tile (where the fused chunk's thresholds are each tile's)."""
+    corpus, _, tidx = setup
+    index = tidx if kind == "fp32" else q8_index
+    pad = np.zeros((len(corpus.queries), 3), np.int32)
+    q_terms = np.concatenate([corpus.queries.astype(np.int32), pad], 1)
+    q_terms[::2, -1] = corpus.queries[::2, 0]          # a repeated real term
+    qw_b, qw_l = (np.concatenate([w, pad.astype(np.float32)], 1)
+                  for w in (corpus.q_weights_b, corpus.q_weights_l))
+    p = twolevel.fast().replace(schedule="impact")
+    calls = []
+
+    def spy(ctx, carry, tiles, *a, **kw):
+        x = real(ctx, carry, tiles, *a, **kw)
+        calls.append((tiles.numpy().copy(), x.skip.numpy().copy()))
+        return x
+    real = traversal.step_inputs
+    monkeypatch.setattr(traversal, "step_inputs", spy)
+    got = {}       # the traversals at chunks of one tile
+    for trav, ct in (("full", 1), ("chunked", 1), ("chunked_fused", 1),
+                     ("chunked_fused", 4)):
+        calls.clear()
+        res = retrieve_batched(index, q_terms, qw_b, qw_l,
+                               p.replace(chunk_tiles=ct),
+                               use_kernel=use_kernel, traversal=trav)
+        present, postings = _visited_counts(tidx, q_terms, calls)
+        np.testing.assert_array_equal(res.stats["docs_present"], present)
+        np.testing.assert_array_equal(res.stats["postings_touched"],
+                                      postings)
+        if ct == 1:
+            got[trav] = res.stats
+    assert (got["full"]["postings_touched"]
+            > got["full"]["docs_present"]).all()
+    for key in ("docs_present", "postings_touched", "tiles_visited"):
+        np.testing.assert_array_equal(got["full"][key],
+                                      got["chunked"][key])
+        np.testing.assert_array_equal(got["full"][key],
+                                      got["chunked_fused"][key])
